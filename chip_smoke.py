@@ -1,32 +1,58 @@
-"""Drive the PyTorch port's narrow search on one CUDA card and check it.
+"""Drive the PyTorch port's narrow and open searches on one CUDA card and
+check them.
 
 Usage (from the repository root, on a machine with an NVIDIA H100):
 
     python3 chip_smoke.py
 
-Phases, each of which fails the run when it fails:
+Phases, each of which fails the run when it fails (each prints its
+seconds):
 
 1. Device: the card's name and power limit; exits non-zero without CUDA.
-2. Build: the stage-1 kernel (csrc/stage1_counts.cu) with nvcc, printing
-   ptxas's registers / shared-memory lines and the build time.
-3. Main path at full width: bench.py's workload (synth_fasta(20000) with
-   C+57.0215 static and M+15.9949 variable mods, 2 batches of 8192
+2. Build: both kernel sources (csrc/stage1_counts.cu, csrc/bitonic_sort.cu)
+   with nvcc, side by side, printing ptxas's registers / shared-memory
+   lines and the build time.
+3. Narrow main path at full width: bench.py's workload (synth_fasta(20000)
+   with C+57.0215 static and M+15.9949 variable mods, 2 batches of 8192
    synthetic spectra, precursor +-20 ppm, fragment +-10 ppm) through
    ``Scorer(db, params).score_stream`` on the card, after one warm-up
-   batch. The kernel's launch counter is set to 0 just before and read
-   just after; every batch must launch it. Then one batch's time is
+   batch. The stage-1 kernel's launch counter is set to 0 just before and
+   read just after; every batch must launch it. Then one batch's time is
    broken down: host phases (synchronised) and, under torch.profiler,
    the device's busy time and top kernels.
-4. Kernel against plain: the kernel against its plain PyTorch version on
-   the same CUDA tensors, at random segment shapes (Wb in {8, 16, 40, 48,
-   64, 256}, Z in {1, 2, 3}, ppm and da) and at the main path's own
-   segments; the int32 outputs must be equal. Both are timed with CUDA
-   events at the main path's segments, beside the card's bound for the
-   same work.
-5. Card against CPU: the first 512 spectra scored on the card and on the
-   CPU (plain versions); every FeatureTable column must be equal.
-6. The ``kernels`` JSON line, the nvidia-smi line, and the final
-   ``{"ok": true, ...}`` line.
+4. Stage-1 kernel against plain: the kernel against its plain PyTorch
+   version on the same CUDA tensors, at random segment shapes and at the
+   main path's own segments; the int32 outputs must be equal. Both are
+   timed with CUDA events at the main path's segments, beside the card's
+   bound for the same work.
+5. Narrow card against CPU: the first 512 spectra scored on the card and
+   on the CPU (plain versions); every FeatureTable column must be equal.
+6. Open path at full width: bench.py's open workload (the same database,
+   precursor -500/+100 Da, fragment +-10 ppm, 4 batches of 512 spectra
+   after one warm-up batch) through ``score_stream``. The sort kernels'
+   counters are set to 0 just before and read just after; every batch
+   must launch the sort kernel. Prints the bands, nbcov, the size
+   classes, F per segment, the device-planned batches and the reruns,
+   the wall rate and peak memory, and one batch's profile with named
+   ranges around the range probe, the count core and the sort.
+7. Merge kernel on the open path: one batch with the one-pass limit
+   lowered, so that every row takes the hierarchical sort; the merge
+   kernel must launch, and every FeatureTable column must equal the
+   default run's.
+8. Sort kernels against plain: each kernel against its plain version at
+   the open path's captured shapes and at random shapes up to 2^17 keys
+   a row; the outputs must be bit-equal (and equal torch.sort). Timed
+   with CUDA events beside torch.sort and the card's bound: the sort
+   kernel at a device-planned batch's shapes and at the host-planned
+   warm-up batch's, the merge kernel at the 2^15-key blocks the main
+   path gives it for rows past the one-pass limit and at phase 7's
+   lowered-limit blocks.
+9. Open card against CPU: 128 open spectra on the card and on the CPU;
+   every FeatureTable column must be equal.
+10. The ``kernels`` JSON line, the nvidia-smi line, and the final
+    ``{"ok": true, ...}`` line. ``launches`` is each kernel's count on
+    its main path (phase 3 or 6); the merge kernel, which those runs
+    never launch, adds phase 7's count as ``forced_launches``.
 
 A ``# record:`` line repeats the run's numbers as JSON.
 """
@@ -34,27 +60,62 @@ A ``# record:`` line repeats the run's numbers as JSON.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and the f32 issue
-# rate outside the tensor cores. The data sheet's 67 TFLOP/s counts a
-# fused multiply-add as two operations; the kernel does no multiply-adds,
-# and each of its f32 compares is one instruction, so the compares are
-# held against half of it: 132 SMs x 128 lanes x ~1.98 GHz.
+# H100 SXM peaks. HBM bandwidth (NVIDIA data sheet). The f32 issue rate
+# outside the tensor cores: the data sheet's 67 TFLOP/s counts a fused
+# multiply-add as two operations; the stage-1 kernel does no multiply-
+# adds, and each of its f32 compares is one instruction, so the compares
+# are held against half of it: 132 SMs x 128 lanes x ~1.98 GHz. The
+# 32-bit integer issue rate: 64 INT32 lanes per SM (NVIDIA H100 Tensor
+# Core GPU Architecture white paper, the Hopper SM) x 132 SMs x 1.98 GHz
+# boost clock (data sheet); the sorts' compares are held against it.
 HBM_BYTES_PER_S = 3.35e12
 F32_COMPARES_PER_S = 67e12 / 2
-KERNEL_SOURCE = "sage_tpu_torch/csrc/stage1_counts.cu"
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # bench.py's database: synth_fasta(20000), targets and decoys
 PROTEINS = 20000
-KERNEL_REPLACES = "sage_tpu/ops/pallas_stage1.py:49"
+KERNELS = {
+    "stage1_counts": ("sage_tpu_torch/csrc/stage1_counts.cu",
+                      "sage_tpu/ops/pallas_stage1.py:49"),
+    "bitonic_sort": ("sage_tpu_torch/csrc/bitonic_sort.cu",
+                     "sage_tpu/ops/pallas_sort.py:52"),
+    "bitonic_merge": ("sage_tpu_torch/csrc/bitonic_sort.cu",
+                      "sage_tpu/ops/pallas_sort.py:73"),
+}
+# bench.py's open workload (bench.py:63-65, 683-699)
+OPEN_BATCH = 512
+OPEN_BATCHES = 4
+# the one-pass limit of phase 7, below the open rows' length
+LOWERED_BLOCK_MAX = 1024
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+class Phase:
+    """Print a phase's seconds when it ends."""
+
+    def __init__(self, name, times):
+        self.name = name
+        self.times = times
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        s = time.perf_counter() - self.t0
+        self.times[self.name] = s
+        if exc[0] is None:
+            log(f"# phase {self.name}: {s:.1f} s")
 
 
 def nvidia_smi_line() -> str:
@@ -98,16 +159,24 @@ def segment_work(ints, W, Lc, Z, S, Pk, B):
     return float(nbytes), ops
 
 
-def bound_ms(nbytes, ops):
+def sort_work(rows, F):
+    """Bytes and compares a sort of ``rows`` rows of F i32 keys needs:
+    each key read and written once; n log2 n compares a row."""
+    return 8.0 * rows * F, float(rows) * F * math.log2(max(F, 2))
+
+
+def bound_ms(nbytes, ops, ops_per_s):
     t_b = nbytes / HBM_BYTES_PER_S
-    t_o = ops / F32_COMPARES_PER_S
+    t_o = ops / ops_per_s
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
-def profile_batch(torch, tsearch, scorer, batch):
+def profile_batch(torch, scorer, batch, ranged, kernel_keys):
     """Where one batch's time goes: host phases of ``score_table`` timed
     with a synchronise after each, then the same batch under
-    torch.profiler for the device's busy time and its top kernels."""
+    torch.profiler for the device's busy time, named ranges and top
+    kernels. ``ranged``: (module, attribute) pairs wrapped in named
+    ranges; ``kernel_keys``: label -> substring of a kernel's name."""
     sync = torch.cuda.synchronize
     ph = {}
     t0 = time.perf_counter()
@@ -117,7 +186,7 @@ def profile_batch(torch, tsearch, scorer, batch):
     sync()
     ph["prep_ms"] = (time.perf_counter() - t0) * 1e3
     t0 = time.perf_counter()
-    fd = scorer._fused_dispatch(batch, Pk, peaks_dev, rows=rows)
+    fd = scorer._fused_dispatch(batch, masses, Pk, peaks_dev, rows=rows)
     ph["dispatch_host_ms"] = (time.perf_counter() - t0) * 1e3
     sync()
     ph["dispatch_to_done_ms"] = (time.perf_counter() - t0) * 1e3
@@ -125,17 +194,16 @@ def profile_batch(torch, tsearch, scorer, batch):
     packed = fd["fused"].cpu().numpy()
     ph["fetch_ms"] = (time.perf_counter() - t0) * 1e3
     t0 = time.perf_counter()
-    scorer._fused_finalize(batch, fd, masses, intens, Pk, packed=packed)
+    t = scorer._fused_finalize(batch, fd, masses, intens, Pk, packed=packed)
+    assert t is not None, "profiled batch overflowed its sticky shapes"
     ph["finalize_ms"] = (time.perf_counter() - t0) * 1e3
     log("# batch phases (ms, synchronised): "
         + ", ".join(f"{k} {v:.2f}" for k, v in ph.items()))
 
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    # Named ranges around the main path's two big device stages, so the
-    # profile attributes their kernels' time to them.
-    ranged = ("rescore_candidate", "_topk_layout")
-    originals = {n: getattr(tsearch, n) for n in ranged}
+    names = [attr for _m, attr in ranged]
+    originals = [(m, attr, getattr(m, attr)) for m, attr in ranged]
 
     def in_range(name, fn):
         def call(*a, **k):
@@ -143,8 +211,8 @@ def profile_batch(torch, tsearch, scorer, batch):
                 return fn(*a, **k)
         return call
 
-    for n, fn in originals.items():
-        setattr(tsearch, n, in_range(n, fn))
+    for m, attr, fn in originals:
+        setattr(m, attr, in_range(attr, fn))
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -153,37 +221,46 @@ def profile_batch(torch, tsearch, scorer, batch):
             sync()
             wall = (time.perf_counter() - t0) * 1e3
     finally:
-        for n, fn in originals.items():
-            setattr(tsearch, n, fn)
+        for m, attr, fn in originals:
+            setattr(m, attr, fn)
     ev = prof.key_averages()
 
     def dev_us(e, own=True):
-        names = (("self_device_time_total", "self_cuda_time_total") if own
-                 else ("device_time_total", "cuda_time_total"))
-        return next((getattr(e, n) for n in names if hasattr(e, n)), 0.0)
+        keys = (("self_device_time_total", "self_cuda_time_total") if own
+                else ("device_time_total", "cuda_time_total"))
+        return next((getattr(e, n) for n in keys if hasattr(e, n)), 0.0)
 
     # Busy time sums the device's own events (kernels, copies) once each;
     # a host op's entry repeats the time of the kernels it launched, and a
     # named range shows up on the device too.
     on_dev = [e for e in ev if str(e.device_type).endswith("CUDA")
-              and e.key not in ranged]
+              and e.key not in names]
     busy = sum(dev_us(e) for e in on_dev) / 1e3
-    s1 = sum(dev_us(e) for e in on_dev if "stage1_counts" in e.key) / 1e3
+    kern = {lab: sum(dev_us(e) for e in on_dev if sub in e.key) / 1e3
+            for lab, sub in kernel_keys.items()}
+    # A range's device time: the kernels its torch ops launched (a kernel
+    # launched through ctypes is not attributed to a range; the kernel
+    # sums above count those), and the span of its device-side event.
     stages = {n: sum(dev_us(e, own=False) for e in ev
                      if e.key == n and not str(e.device_type).endswith("CUDA"))
-              / 1e3 for n in ranged}
+              / 1e3 for n in names}
+    spans = {n: sum(dev_us(e) for e in ev
+                    if e.key == n and str(e.device_type).endswith("CUDA"))
+             / 1e3 for n in names}
     top = sorted((e for e in ev if not str(e.device_type).endswith("CUDA")),
                  key=dev_us, reverse=True)[:8]
     ph.update(profiled_wall_ms=wall, device_busy_ms=busy,
-              stage1_kernel_device_ms=s1,
+              **{f"{k}_kernel_device_ms": v for k, v in kern.items()},
               **{f"{n}_device_ms": v for n, v in stages.items()},
+              **{f"{n}_device_span_ms": v for n, v in spans.items()},
               idle_share=(1 - busy / wall) if busy else None)
     if busy:
         log(f"# profile: score_table wall {wall:.2f} ms, device busy "
             f"{busy:.2f} ms, idle share {1 - busy / wall:.3f}; device ms: "
-            f"stage-1 kernel {s1:.3f}, "
-            + ", ".join(f"{n} {v:.2f}" for n, v in stages.items())
-            + f", the rest {busy - s1 - sum(stages.values()):.2f}")
+            + ", ".join(f"{k} kernel {v:.3f}" for k, v in kern.items())
+            + "; ranges (their torch ops' kernels / device span): "
+            + ", ".join(f"{n} {v:.2f} / {spans[n]:.2f}"
+                        for n, v in stages.items()))
         log("# host ops by the device time of the kernels they launched:")
         for e in top:
             log(f"#   {dev_us(e) / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:70]}")
@@ -192,21 +269,513 @@ def profile_batch(torch, tsearch, scorer, batch):
     return ph
 
 
+def assert_tables_equal(a, b, what):
+    assert len(a) == len(b) > 0, (what, len(a), len(b))
+    for k in b.columns:
+        np.testing.assert_array_equal(a.columns[k], b.columns[k],
+                                      err_msg=f"{what}: column {k}")
+
+
+def build_kernels(_cuda_build):
+    """Build both kernel sources side by side (one nvcc each), then load
+    them; the wrappers find the loaded libraries by name."""
+    names = ("stage1_counts", "bitonic_sort")
+    flags = ["-Xptxas", "-v"]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(names)) as ex:
+        list(ex.map(lambda n: _cuda_build.build(n, flags), names))
+    for n in names:
+        _cuda_build.load(n, flags)
+    build_s = time.perf_counter() - t0
+    for n in names:
+        secs, ptxas = _cuda_build.build_logs.get(n, (0.0, ""))
+        for line in ptxas.splitlines():
+            if "registers" in line or "smem" in line or "spill" in line:
+                log(f"# ptxas {n}: {line.strip()}")
+        log(f"# build: {n} in {secs:.2f} s")
+    log(f"# build: both sources in {build_s:.2f} s wall")
+    return build_s
+
+
+def narrow_phases(torch, tsearch, pallas_stage1, db, spectra, dev, times):
+    """Phases 3-5 (the narrow search)."""
+    batch = 8192
+    warm, b1, b2 = (spectra[i * batch:(i + 1) * batch] for i in range(3))
+    params = tsearch.SearchParams(
+        precursor_tol=tsearch.Tolerance("ppm", -20.0, 20.0),
+        fragment_tol=tsearch.Tolerance("ppm", -10.0, 10.0),
+    )
+    out = {}
+    with Phase("3_narrow_main_path", times):
+        t0 = time.perf_counter()
+        scorer = tsearch.Scorer(db, params)
+        torch.cuda.synchronize()
+        log(f"# tables: P_pad {scorer.tables.P_pad}, L {scorer.tables.L}, "
+            f"S {scorer.n_series}, on {scorer.device} in "
+            f"{time.perf_counter() - t0:.2f} s")
+
+        # warm-up batch; its stage-1 segments are recorded for phase 4
+        captured = []
+        real_s1 = tsearch.stage1_counts
+
+        def recording(lad, peaks, ints, **kw):
+            captured.append((peaks, ints, kw))
+            return real_s1(lad, peaks, ints, **kw)
+
+        tsearch.stage1_counts = recording
+        try:
+            t0 = time.perf_counter()
+            warm_tables = list(scorer.score_stream([warm]))
+            warm_s = time.perf_counter() - t0
+        finally:
+            tsearch.stage1_counts = real_s1
+        log(f"# warm-up batch: {batch} spectra in {warm_s:.2f} s, "
+            f"{len(warm_tables[0])} PSMs")
+
+        per_batch = []
+        real_dispatch = scorer._fused_dispatch
+
+        def counting_dispatch(*a, **k):
+            n0 = pallas_stage1.launches
+            d = real_dispatch(*a, **k)
+            per_batch.append(pallas_stage1.launches - n0)
+            return d
+
+        scorer._fused_dispatch = counting_dispatch
+        torch.cuda.reset_peak_memory_stats()
+        pallas_stage1.launches = 0
+        t0 = time.perf_counter()
+        tables = list(scorer.score_stream([b1, b2]))
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = pallas_stage1.launches
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        scorer._fused_dispatch = real_dispatch
+        lp = scorer.last_plan
+        log(f"# plan (Wb, Lcb, Rb, Zc): {list(lp['plan'])}")
+        log(f"# plan rows per segment: {lp['seg_rows']}, G_eff "
+            f"{lp['G_eff']}, W {lp['W']}, Ksel {lp['Ksel']}")
+        log(f"# main path: 2 x {batch} spectra in {wall_s:.3f} s wall = "
+            f"{2 * batch / wall_s:.1f} spectra/s; stage1_counts launches "
+            f"{launches} (per batch {per_batch}); peak device memory "
+            f"{peak_gib:.2f} GiB")
+        assert len(per_batch) == 2 and all(n > 0 for n in per_batch), \
+            per_batch
+        assert launches == sum(per_batch) > 0
+        n_psm = 0
+        for t, bt in zip(tables, (b1, b2)):
+            assert len(t) > 0.9 * len(bt), (len(t), len(bt))
+            assert np.isfinite(t.columns["hyperscore"]).all()
+            assert (t.columns["matched_peaks"]
+                    >= params.min_matched_peaks).all()
+            # synthetic spectra carry their peptide's precursor mass
+            assert (np.abs(t.columns["delta_mass"]) <= 20.5).all()
+            n_psm += len(t)
+        log(f"# main path PSMs: {n_psm}")
+        breakdown = profile_batch(
+            torch, scorer, b1,
+            [(tsearch, "rescore_candidate"), (tsearch, "_topk_layout")],
+            {"stage1": "stage1_counts"},
+        )
+    out.update(batch=batch, wall_s_2_batches=wall_s,
+               spectra_per_s=2 * batch / wall_s,
+               launches_per_batch=per_batch, peak_device_gib=peak_gib,
+               plan=[list(e) for e in lp["plan"]], seg_rows=lp["seg_rows"],
+               batch_breakdown=breakdown)
+
+    with Phase("4_stage1_kernel_vs_plain", times):
+        lad = scorer.tables.lad_index
+        S, L = scorer.n_series, scorer.tables.L
+        P_pad = scorer.tables.P_pad
+        rng = np.random.default_rng(0)
+        masses, _intens, Pk = scorer._pad_peaks(warm[:256])
+        peaks_r = torch.from_numpy(masses).to(dev)
+        max_err = 0
+        n_shapes = 0
+        for W in (8, 16, 40, 48, 64, 256):
+            for Z in (1, 2, 3):
+                for tol in (("ppm", -10.0, 10.0), ("da", -0.02, 0.02)):
+                    R = 512
+                    p0 = rng.integers(0, len(db) - W, R)
+                    i0 = p0 + rng.integers(0, W // 4 + 1, R)
+                    ints = np.stack([
+                        rng.integers(0, 256, R), np.minimum(p0, P_pad - W),
+                        i0, i0 + rng.integers(0, W + 1, R),
+                        rng.choice([2, 3, 4], R),
+                    ]).astype(np.int32)
+                    ints_d = torch.from_numpy(ints).to(dev)
+                    Lc = int(rng.choice([12, 24, L]))
+                    kw = dict(W=W, Lc=min(Lc, L), Z=Z, tol=tol)
+                    got = pallas_stage1.stage1_counts(lad, peaks_r, ints_d,
+                                                      **kw)
+                    want = pallas_stage1.stage1_counts_plain(
+                        lad, peaks_r, ints_d, **kw)
+                    torch.cuda.synchronize()
+                    err = int((got.long() - want.long()).abs().max())
+                    assert int((want[:, :W] > 0).sum()) > 0
+                    assert err == 0, (W, Z, tol, Lc, err)
+                    max_err = max(max_err, err)
+                    n_shapes += 1
+        log(f"# kernel vs plain: {n_shapes} random segment shapes equal "
+            f"(max |err| {max_err})")
+
+        reps = 20
+        k_ms = p_ms = 0.0
+        nbytes_t = ops_t = 0.0
+        for peaks, ints_d, kw in captured:
+            got = pallas_stage1.stage1_counts(lad, peaks, ints_d, **kw)
+            want = pallas_stage1.stage1_counts_plain(lad, peaks, ints_d, **kw)
+            torch.cuda.synchronize()
+            err = int((got.long() - want.long()).abs().max())
+            assert err == 0, (kw, err)
+            km = cuda_ms(lambda: pallas_stage1.stage1_counts(
+                lad, peaks, ints_d, **kw), reps)
+            pm = cuda_ms(lambda: pallas_stage1.stage1_counts_plain(
+                lad, peaks, ints_d, **kw), 3)
+            nb, ops = segment_work(ints_d.cpu().numpy(), kw["W"], kw["Lc"],
+                                   kw["Z"], S, peaks.shape[1], peaks.shape[0])
+            bm, by = bound_ms(nb, ops, F32_COMPARES_PER_S)
+            log(f"# segment W={kw['W']} Lc={kw['Lc']} R={ints_d.shape[1]} "
+                f"Z={kw['Z']}: kernel {km:.4f} ms, plain {pm:.3f} ms, bound "
+                f"{bm:.4f} ms ({by}; {nb / 1e6:.2f} MB, {ops / 1e9:.3f} G "
+                f"compares)")
+            k_ms += km
+            p_ms += pm
+            nbytes_t += nb
+            ops_t += ops
+        b_ms, b_by = bound_ms(nbytes_t, ops_t, F32_COMPARES_PER_S)
+        log(f"# stage1_counts per {batch}-spectrum batch ({len(captured)} "
+            f"launches): kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}; {nbytes_t / 1e6:.1f} MB at "
+            f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s, {ops_t / 1e9:.2f} G f32 "
+            f"compares at {F32_COMPARES_PER_S / 1e12:.1f} T/s issue rate)")
+    kernel = {"name": "stage1_counts", "launches": launches,
+              "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
+              "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+    with Phase("5_narrow_card_vs_cpu", times):
+        sub = b1[:512]
+        t_gpu = tsearch.Scorer(db, params).score_table(sub)
+        t_cpu = tsearch.Scorer(db, params, device="cpu").score_table(sub)
+        assert_tables_equal(t_gpu, t_cpu, "narrow card vs CPU")
+        log(f"# narrow card vs CPU: {len(t_cpu)} PSMs of {len(sub)} spectra, "
+            f"all {len(t_cpu.columns)} FeatureTable columns equal")
+    return out, kernel
+
+
+def open_phases(torch, tsearch, topen, pallas_sort, db, spectra, dev, times):
+    """Phases 6-9 (the open search)."""
+    params = tsearch.SearchParams(
+        precursor_tol=tsearch.Tolerance("da", -500.0, 100.0),
+        fragment_tol=tsearch.Tolerance("ppm", -10.0, 10.0),
+    )
+    B = OPEN_BATCH
+    warm = spectra[:B]
+    batches = [spectra[(i + 1) * B:(i + 2) * B] for i in range(OPEN_BATCHES)]
+    out = {}
+    with Phase("6_open_main_path", times):
+        t0 = time.perf_counter()
+        scorer = tsearch.Scorer(db, params)
+        os_ = scorer._open_searcher()
+        torch.cuda.synchronize()
+        log(f"# open searcher: {os_.n_bands} bands of {os_.band_w} "
+            f"peptides, {db.num_fragments} fragments on {os_.device}, in "
+            f"{time.perf_counter() - t0:.2f} s")
+
+        # warm-up batch (host-planned: records the sticky shapes); its sort
+        # inputs are recorded for phase 8
+        warm_sorts = []
+        real_sort = topen.bitonic_sort_rows
+
+        def recording(key, *a, **k):
+            warm_sorts.append(key.clone())
+            return real_sort(key, *a, **k)
+
+        topen.bitonic_sort_rows = recording
+        try:
+            t0 = time.perf_counter()
+            warm_t = list(scorer.score_stream([warm]))
+            warm_s = time.perf_counter() - t0
+        finally:
+            topen.bitonic_sort_rows = real_sort
+        wp = scorer.last_plan
+        assert wp.get("open"), "the open workload did not take the open path"
+        log(f"# open warm-up batch: {B} spectra in {warm_s:.2f} s, "
+            f"{len(warm_t[0])} PSMs; plan {wp}")
+
+        per_batch = []
+        real_dispatch = scorer._fused_dispatch
+
+        def counting_dispatch(*a, **k):
+            n0 = pallas_sort.launches["bitonic_sort"]
+            d = real_dispatch(*a, **k)
+            per_batch.append((pallas_sort.launches["bitonic_sort"] - n0,
+                              dict(scorer.last_plan)))
+            return d
+
+        scorer._fused_dispatch = counting_dispatch
+        reruns0 = scorer.fused_reruns
+        torch.cuda.reset_peak_memory_stats()
+        for k in pallas_sort.launches:
+            pallas_sort.launches[k] = 0
+        t0 = time.perf_counter()
+        tables = list(scorer.score_stream(batches))
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = dict(pallas_sort.launches)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        scorer._fused_dispatch = real_dispatch
+        reruns = scorer.fused_reruns - reruns0
+        n_dev = sum(1 for _n, p in per_batch if p["device_planned"])
+        for i, (n, p) in enumerate(per_batch):
+            log(f"# open dispatch {i}: sort launches {n}, device-planned "
+                f"{p['device_planned']}, bands {p['n_bands']}, nbcov "
+                f"{p['nbcov']}, segments {list(p['plan'])}, F per segment "
+                f"{p['F']}, Wc {p['Wc']}, chunked {p['chunked']}, classes "
+                f"{p['classes']}")
+        log(f"# open main path: {OPEN_BATCHES} x {B} spectra in "
+            f"{wall_s:.3f} s wall = {OPEN_BATCHES * B / wall_s:.1f} "
+            f"spectra/s; sort launches {launches['bitonic_sort']}, merge "
+            f"launches {launches['bitonic_merge']}; {n_dev} of "
+            f"{len(per_batch)} dispatches device-planned, {reruns} reruns; "
+            f"peak device memory {peak_gib:.2f} GiB")
+        assert len(per_batch) == OPEN_BATCHES + reruns
+        assert all(n > 0 for n, _p in per_batch), per_batch
+        assert launches["bitonic_sort"] == sum(n for n, _p in per_batch)
+        for t, bt in zip(tables, batches):
+            assert len(t) > 0.9 * len(bt), (len(t), len(bt))
+            assert np.isfinite(t.columns["hyperscore"]).all()
+            assert (t.columns["matched_peaks"]
+                    >= params.min_matched_peaks).all()
+            # -500/+100 Da window, in ppm of the precursor mass
+            assert np.isfinite(t.columns["delta_mass"]).all()
+        log(f"# open main path PSMs: {sum(len(t) for t in tables)}")
+        breakdown = profile_batch(
+            torch, scorer, batches[0],
+            [(topen, "_probe"), (tsearch, "_device_open_count"),
+             (topen, "bitonic_sort_rows"), (tsearch, "rescore_candidate")],
+            {"bitonic_sort": "bitonic_sort_blocks",
+             "bitonic_merge": "bitonic_merge_blocks"},
+        )
+    out.update(batch=B, batches=OPEN_BATCHES, wall_s=wall_s,
+               spectra_per_s=OPEN_BATCHES * B / wall_s,
+               sort_launches_per_dispatch=[n for n, _p in per_batch],
+               device_planned=n_dev, reruns=reruns, peak_device_gib=peak_gib,
+               plans=[p for _n, p in per_batch],
+               batch_breakdown=breakdown)
+
+    with Phase("7_open_merge_kernel", times):
+        # the default run of a device-planned batch; its sort inputs are
+        # recorded for phase 8
+        b = batches[0]
+        captured = []
+        real_sort = topen.bitonic_sort_rows
+
+        def recording(key, *a, **k):
+            captured.append(key.clone())
+            return real_sort(key, *a, **k)
+
+        topen.bitonic_sort_rows = recording
+        try:
+            scorer._psm_counter = 1
+            t_default = scorer.score_table(b)
+        finally:
+            topen.bitonic_sort_rows = real_sort
+        assert scorer.last_plan["device_planned"]
+        merged = []
+        real_merge = pallas_sort.merge_blocks
+
+        def recording_merge(x, cb):
+            merged.append((x.clone(), cb))
+            return real_merge(x, cb)
+
+        block_max = pallas_sort._BLOCK_MAX
+        pallas_sort._BLOCK_MAX = LOWERED_BLOCK_MAX
+        pallas_sort.merge_blocks = recording_merge
+        for k in pallas_sort.launches:
+            pallas_sort.launches[k] = 0
+        try:
+            scorer._psm_counter = 1
+            t_low = scorer.score_table(b)
+            torch.cuda.synchronize()
+        finally:
+            pallas_sort._BLOCK_MAX = block_max
+            pallas_sort.merge_blocks = real_merge
+        low_launches = dict(pallas_sort.launches)
+        log(f"# lowered one-pass limit {LOWERED_BLOCK_MAX}: sort launches "
+            f"{low_launches['bitonic_sort']}, merge launches "
+            f"{low_launches['bitonic_merge']}, F per segment "
+            f"{scorer.last_plan['F']}")
+        assert low_launches["bitonic_merge"] > 0, low_launches
+        assert_tables_equal(t_low, t_default, "lowered one-pass limit")
+        log(f"# lowered one-pass limit: all {len(t_default.columns)} "
+            f"FeatureTable columns equal the default run's "
+            f"({len(t_default)} PSMs)")
+
+    with Phase("8_sort_kernels_vs_plain", times):
+        rng = np.random.default_rng(1)
+        n_checked = 0
+        shapes = [(k.shape[0], k.shape[1]) for k in captured]
+        rand = [(16, 1), (64, 100), (256, 1000), (512, 4096), (64, 20000),
+                (64, 32768), (32, 50000), (16, 100000), (8, 131072)]
+        for B_r, F_r in rand:
+            x = torch.from_numpy(rng.integers(
+                -(2**26), 2**26, size=(B_r, F_r)).astype(np.int32)).to(dev)
+            x[:, F_r // 3:F_r // 3 + 5] = 2**31 - 1
+            got = pallas_sort.bitonic_sort_rows(x)
+            assert torch.equal(got, torch.sort(x, dim=1).values), (B_r, F_r)
+            # the sort kernel alone at this row's block shape: one pass,
+            # or the 2^15-key blocks of the hierarchical path
+            Fp = 1 << max(F_r - 1, 0).bit_length()
+            cb = min(Fp, pallas_sort._BLOCK_MAX)
+            Fout = F_r if cb == Fp else Fp
+            assert torch.equal(
+                pallas_sort.sort_blocks(x, cb, Fout, 2**31 - 1),
+                pallas_sort.sort_blocks_plain(x, cb, Fout, 2**31 - 1),
+            ), (B_r, F_r)
+            n_checked += 1
+        for x in warm_sorts + captured:
+            got = pallas_sort.bitonic_sort_rows(x)
+            Fp = 1 << max(x.shape[1] - 1, 0).bit_length()
+            assert torch.equal(
+                got, pallas_sort.sort_blocks_plain(x, Fp, x.shape[1],
+                                                   2**31 - 1))
+            assert torch.equal(got, torch.sort(x, dim=1).values)
+            n_checked += 1
+        # the merge kernel at the block size the main path gives it (rows
+        # past 2^15 keys): one open batch of rows of 2^16 keys
+        merge_main = _bitonic_blocks(torch, rng, 2 * B, pallas_sort._BLOCK_MAX,
+                                     dev)
+        for xb, cb in merged + [(merge_main, pallas_sort._BLOCK_MAX),
+                                (_bitonic_blocks(torch, rng, 512, 4096, dev),
+                                 4096)]:
+            got = pallas_sort.merge_blocks(xb, cb)
+            assert torch.equal(got, pallas_sort.merge_blocks_plain(xb, cb))
+            assert torch.equal(got, torch.sort(xb.view(-1, cb), dim=1)
+                               .values.view(xb.shape))
+            n_checked += 1
+        torch.cuda.synchronize()
+        log(f"# sort kernels vs plain: {n_checked} inputs bit-equal (kernel, "
+            f"plain version and torch.sort); captured open rows: warm-up "
+            f"{[tuple(x.shape) for x in warm_sorts]}, device-planned {shapes}")
+
+        # the sort kernel per batch at the device-planned batch's shapes
+        # (the main path's) and at the host-planned warm-up batch's
+        sort_t = time_sorts(torch, pallas_sort, captured, f"device-planned "
+                            f"{B}-spectrum open batch")
+        warm_sort_t = time_sorts(torch, pallas_sort, warm_sorts,
+                                 f"host-planned {B}-spectrum warm-up batch")
+        merge_t = time_merges(torch, pallas_sort, [(merge_main,
+                                                    pallas_sort._BLOCK_MAX)],
+                              f"{merge_main.shape[0]} blocks of "
+                              f"{pallas_sort._BLOCK_MAX} (rows of 2^16 keys)")
+        forced_t = time_merges(torch, pallas_sort, merged,
+                               f"lowered-limit batch, blocks of "
+                               f"{LOWERED_BLOCK_MAX}")
+    out.update(sort_warmup=warm_sort_t, merge_forced=forced_t)
+    kernels = [
+        {"name": "bitonic_sort", "launches": launches["bitonic_sort"],
+         "max_abs_err": 0, **sort_t, "warmup_ms": warm_sort_t["ms"],
+         "warmup_library_ms": warm_sort_t["library_ms"]},
+        # the main path launches the merge kernel only for rows past 2^15
+        # keys, which this workload never gives it; phase 7's lowered-limit
+        # run launches it (forced_launches)
+        {"name": "bitonic_merge", "launches": launches["bitonic_merge"],
+         "max_abs_err": 0, **merge_t,
+         "forced_launches": low_launches["bitonic_merge"],
+         "forced_ms": forced_t["ms"]},
+    ]
+
+    with Phase("9_open_card_vs_cpu", times):
+        sub = batches[1][:128]
+        t_gpu = tsearch.Scorer(db, params).score_table(sub)
+        t_cpu = tsearch.Scorer(db, params, device="cpu").score_table(sub)
+        assert_tables_equal(t_gpu, t_cpu, "open card vs CPU")
+        log(f"# open card vs CPU: {len(t_cpu)} PSMs of {len(sub)} spectra, "
+            f"all {len(t_cpu.columns)} FeatureTable columns equal")
+    return out, kernels
+
+
+def time_sorts(torch, pallas_sort, xs, what, reps=20):
+    """The sort kernel (through ``bitonic_sort_rows``), its plain version
+    and torch.sort on each input of ``xs``, timed with CUDA events and
+    summed, beside the card's bound for the same work."""
+    t = dict(ms=0.0, plain_ms=0.0, library_ms=0.0)
+    nb_t = ops_t = 0.0
+    for x in xs:
+        R_x, F_x = x.shape
+        Fp = 1 << max(F_x - 1, 0).bit_length()
+        km = cuda_ms(lambda: pallas_sort.bitonic_sort_rows(x), reps)
+        pm = cuda_ms(lambda: pallas_sort.sort_blocks_plain(
+            x, Fp, F_x, 2**31 - 1), 3)
+        lm = cuda_ms(lambda: torch.sort(x, dim=1), reps)
+        nb, ops = sort_work(R_x, F_x)
+        bm, by = bound_ms(nb, ops, INT32_OPS_PER_S)
+        log(f"# sort rows [{R_x}, {F_x}]: kernel {km:.4f} ms, plain "
+            f"{pm:.3f} ms, torch.sort {lm:.4f} ms, bound {bm:.4f} ms ({by})")
+        t["ms"] += km
+        t["plain_ms"] += pm
+        t["library_ms"] += lm
+        nb_t += nb
+        ops_t += ops
+    t["bound_ms"], t["bound_by"] = bound_ms(nb_t, ops_t, INT32_OPS_PER_S)
+    log(f"# bitonic_sort per {what} ({len(xs)} launches): kernel "
+        f"{t['ms']:.4f} ms, plain {t['plain_ms']:.3f} ms, torch.sort "
+        f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+        f"({t['bound_by']}; {nb_t / 1e6:.1f} MB at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s, {ops_t / 1e9:.3f} G compares at "
+        f"{INT32_OPS_PER_S / 1e12:.1f} T/s int32 issue rate)")
+    return t
+
+
+def time_merges(torch, pallas_sort, inputs, what, reps=20):
+    """The merge kernel, its plain version and torch.sort of the same
+    blocks on each (x, cb) of ``inputs``, timed and summed as above."""
+    t = dict(ms=0.0, plain_ms=0.0, library_ms=0.0)
+    nb_t = ops_t = 0.0
+    for xb, cb in inputs:
+        t["ms"] += cuda_ms(lambda: pallas_sort.merge_blocks(xb, cb), reps)
+        t["plain_ms"] += cuda_ms(
+            lambda: pallas_sort.merge_blocks_plain(xb, cb), 3)
+        t["library_ms"] += cuda_ms(
+            lambda: torch.sort(xb.view(-1, cb), dim=1), reps)
+        nb, ops = sort_work(xb.numel() // cb, cb)
+        nb_t += nb
+        ops_t += ops
+    t["bound_ms"], t["bound_by"] = bound_ms(nb_t, ops_t, INT32_OPS_PER_S)
+    log(f"# bitonic_merge per {what} ({len(inputs)} launches): kernel "
+        f"{t['ms']:.4f} ms, plain {t['plain_ms']:.3f} ms, torch.sort "
+        f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+        f"({t['bound_by']})")
+    return t
+
+
+def _bitonic_blocks(torch, rng, nblocks, cb, dev):
+    """[nblocks, cb] i32 rows, each an ascending run followed by a
+    descending one (bitonic), as the merge kernel receives them."""
+    x = rng.integers(-1000, 1000, size=(nblocks, cb)).astype(np.int32)
+    h = cb // 2
+    x[:, :h] = np.sort(x[:, :h], axis=1)
+    x[:, h:] = np.sort(x[:, h:], axis=1)[:, ::-1]
+    return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+
 def main():
     import torch
 
     # the package comes first: without it nothing below can run
     from sage_tpu_torch.bench_baseline import synth_fasta, synth_spectra
     from sage_tpu_torch.chem.fasta import Fasta
-    from sage_tpu_torch.chem.mass import Tolerance
     from sage_tpu_torch.chem.modification import (
         validate_mods,
         validate_var_mods,
     )
     from sage_tpu_torch.index.builder import DatabaseParams
-    from sage_tpu_torch.ops import _cuda_build, pallas_stage1
+    from sage_tpu_torch.ops import _cuda_build, pallas_sort, pallas_stage1
+    from sage_tpu_torch.ops import open_search as topen
     from sage_tpu_torch.ops import search as tsearch
 
+    times = {}
     # ---- 1. device
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -218,197 +787,40 @@ def main():
         f"cuda {torch.version.cuda}")
     dev = torch.device("cuda")
 
-    # ---- 2. build
-    t0 = time.perf_counter()
-    _cuda_build.load("stage1_counts", ["-Xptxas", "-v"])
-    build_s = time.perf_counter() - t0
-    _secs, ptxas = _cuda_build.build_logs.get("stage1_counts", (0.0, ""))
-    for line in ptxas.splitlines():
-        if "registers" in line or "smem" in line or "spill" in line:
-            log(f"# ptxas: {line.strip()}")
-    log(f"# build: stage1_counts in {build_s:.2f} s")
+    with Phase("2_build", times):
+        build_s = build_kernels(_cuda_build)
 
-    # ---- 3. main path at full width
-    t0 = time.perf_counter()
-    dbp = DatabaseParams(
-        static_mods=validate_mods({"C": 57.0215}),
-        variable_mods=validate_var_mods({"M": [15.9949]}),
-    )
-    db = dbp.build(Fasta.parse(synth_fasta(PROTEINS), dbp.decoy_tag, True))
-    db_s = time.perf_counter() - t0
-    log(f"# db: {PROTEINS} proteins, {len(db)} peptides, "
-        f"{db.num_fragments} fragments, built in {db_s:.1f} s")
-    batch = 8192
-    spectra = synth_spectra(db, 3 * batch)
-    warm, b1, b2 = (spectra[i * batch:(i + 1) * batch] for i in range(3))
-    params = tsearch.SearchParams(
-        precursor_tol=Tolerance("ppm", -20.0, 20.0),
-        fragment_tol=Tolerance("ppm", -10.0, 10.0),
-    )
-    t0 = time.perf_counter()
-    scorer = tsearch.Scorer(db, params)
-    torch.cuda.synchronize()
-    log(f"# tables: P_pad {scorer.tables.P_pad}, L {scorer.tables.L}, "
-        f"S {scorer.n_series}, on {scorer.device} in "
-        f"{time.perf_counter() - t0:.2f} s")
+    with Phase("db", times):
+        dbp = DatabaseParams(
+            static_mods=validate_mods({"C": 57.0215}),
+            variable_mods=validate_var_mods({"M": [15.9949]}),
+        )
+        db = dbp.build(Fasta.parse(synth_fasta(PROTEINS), dbp.decoy_tag, True))
+        log(f"# db: {PROTEINS} proteins, {len(db)} peptides, "
+            f"{db.num_fragments} fragments")
+        spectra = synth_spectra(db, 3 * 8192)
 
-    # warm-up batch; its stage-1 segments are recorded for phase 4
-    captured = []
-    real_s1 = tsearch.stage1_counts
+    narrow, k_stage1 = narrow_phases(torch, tsearch, pallas_stage1, db,
+                                     spectra, dev, times)
+    open_rec, k_sort = open_phases(torch, tsearch, topen, pallas_sort, db,
+                                   spectra, dev, times)
 
-    def recording(lad, peaks, ints, **kw):
-        captured.append((peaks, ints, kw))
-        return real_s1(lad, peaks, ints, **kw)
-
-    tsearch.stage1_counts = recording
-    try:
-        t0 = time.perf_counter()
-        warm_tables = list(scorer.score_stream([warm]))
-        warm_s = time.perf_counter() - t0
-    finally:
-        tsearch.stage1_counts = real_s1
-    log(f"# warm-up batch: {batch} spectra in {warm_s:.2f} s, "
-        f"{len(warm_tables[0])} PSMs")
-
-    per_batch = []
-    real_dispatch = scorer._fused_dispatch
-
-    def counting_dispatch(*a, **k):
-        n0 = pallas_stage1.launches
-        d = real_dispatch(*a, **k)
-        per_batch.append(pallas_stage1.launches - n0)
-        return d
-
-    scorer._fused_dispatch = counting_dispatch
-    torch.cuda.reset_peak_memory_stats()
-    pallas_stage1.launches = 0
-    t0 = time.perf_counter()
-    tables = list(scorer.score_stream([b1, b2]))
-    torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
-    launches = pallas_stage1.launches
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    scorer._fused_dispatch = real_dispatch
-    lp = scorer.last_plan
-    log(f"# plan (Wb, Lcb, Rb, Zc): {list(lp['plan'])}")
-    log(f"# plan rows per segment: {lp['seg_rows']}, G_eff {lp['G_eff']}, "
-        f"W {lp['W']}, Ksel {lp['Ksel']}")
-    log(f"# main path: 2 x {batch} spectra in {wall_s:.3f} s wall = "
-        f"{2 * batch / wall_s:.1f} spectra/s; stage1_counts launches "
-        f"{launches} (per batch {per_batch}); peak device memory "
-        f"{peak_gib:.2f} GiB")
-    assert len(per_batch) == 2 and all(n > 0 for n in per_batch), per_batch
-    assert launches == sum(per_batch) > 0
-    n_psm = 0
-    for t, bt in zip(tables, (b1, b2)):
-        assert len(t) > 0.9 * len(bt), (len(t), len(bt))
-        assert np.isfinite(t.columns["hyperscore"]).all()
-        assert (t.columns["matched_peaks"] >= params.min_matched_peaks).all()
-        # synthetic spectra carry their peptide's precursor mass
-        assert (np.abs(t.columns["delta_mass"]) <= 20.5).all()
-        n_psm += len(t)
-    log(f"# main path PSMs: {n_psm}")
-    breakdown = profile_batch(torch, tsearch, scorer, b1)
-
-    # ---- 4. kernel against plain
-    lad = scorer.tables.lad_index
-    S, L = scorer.n_series, scorer.tables.L
-    P_pad = scorer.tables.P_pad
-    rng = np.random.default_rng(0)
-    masses, _intens, Pk = scorer._pad_peaks(warm[:256])
-    peaks_r = torch.from_numpy(masses).to(dev)
-    max_err = 0
-    n_shapes = 0
-    for W in (8, 16, 40, 48, 64, 256):
-        for Z in (1, 2, 3):
-            for tol in (("ppm", -10.0, 10.0), ("da", -0.02, 0.02)):
-                R = 512
-                p0 = rng.integers(0, len(db) - W, R)
-                i0 = p0 + rng.integers(0, W // 4 + 1, R)
-                ints = np.stack([
-                    rng.integers(0, 256, R), np.minimum(p0, P_pad - W), i0,
-                    i0 + rng.integers(0, W + 1, R), rng.choice([2, 3, 4], R),
-                ]).astype(np.int32)
-                ints_d = torch.from_numpy(ints).to(dev)
-                Lc = int(rng.choice([12, 24, L]))
-                kw = dict(W=W, Lc=min(Lc, L), Z=Z, tol=tol)
-                got = pallas_stage1.stage1_counts(lad, peaks_r, ints_d, **kw)
-                want = pallas_stage1.stage1_counts_plain(lad, peaks_r, ints_d,
-                                                         **kw)
-                torch.cuda.synchronize()
-                err = int((got.long() - want.long()).abs().max())
-                assert int((want[:, :W] > 0).sum()) > 0
-                assert err == 0, (W, Z, tol, Lc, err)
-                max_err = max(max_err, err)
-                n_shapes += 1
-    log(f"# kernel vs plain: {n_shapes} random segment shapes equal "
-        f"(max |err| {max_err})")
-
-    reps = 20
-    k_ms = p_ms = b_ms = 0.0
-    nbytes_t = ops_t = 0.0
-    for peaks, ints_d, kw in captured:
-        got = pallas_stage1.stage1_counts(lad, peaks, ints_d, **kw)
-        want = pallas_stage1.stage1_counts_plain(lad, peaks, ints_d, **kw)
-        torch.cuda.synchronize()
-        err = int((got.long() - want.long()).abs().max())
-        assert err == 0, (kw, err)
-        km = cuda_ms(lambda: pallas_stage1.stage1_counts(
-            lad, peaks, ints_d, **kw), reps)
-        pm = cuda_ms(lambda: pallas_stage1.stage1_counts_plain(
-            lad, peaks, ints_d, **kw), 3)
-        nb, ops = segment_work(ints_d.cpu().numpy(), kw["W"], kw["Lc"],
-                               kw["Z"], S, peaks.shape[1], peaks.shape[0])
-        bm, by = bound_ms(nb, ops)
-        log(f"# segment W={kw['W']} Lc={kw['Lc']} R={ints_d.shape[1]} "
-            f"Z={kw['Z']}: kernel {km:.4f} ms, plain {pm:.3f} ms, bound "
-            f"{bm:.4f} ms ({by}; {nb / 1e6:.2f} MB, {ops / 1e9:.3f} G "
-            f"compares)")
-        k_ms += km
-        p_ms += pm
-        nbytes_t += nb
-        ops_t += ops
-    b_ms, b_by = bound_ms(nbytes_t, ops_t)
-    log(f"# stage1_counts per {batch}-spectrum batch ({len(captured)} "
-        f"launches): kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, bound "
-        f"{b_ms:.4f} ms ({b_by}; {nbytes_t / 1e6:.1f} MB at "
-        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s, {ops_t / 1e9:.2f} G f32 "
-        f"compares at {F32_COMPARES_PER_S / 1e12:.1f} T/s issue rate), "
-        f"on {smi}")
-
-    # ---- 5. card against CPU on 512 spectra
-    sub = b1[:512]
-    t0 = time.perf_counter()
-    t_gpu = tsearch.Scorer(db, params).score_table(sub)
-    t_cpu = tsearch.Scorer(db, params, device="cpu").score_table(sub)
-    assert len(t_gpu) == len(t_cpu) > 0
-    for k in t_cpu.columns:
-        np.testing.assert_array_equal(t_gpu.columns[k], t_cpu.columns[k],
-                                      err_msg=f"column {k}")
-    log(f"# card vs CPU: {len(t_cpu)} PSMs of {len(sub)} spectra, all "
-        f"{len(t_cpu.columns)} FeatureTable columns equal "
-        f"({time.perf_counter() - t0:.1f} s)")
-
-    # ---- 6. result lines
-    kernels = {"kernels": [{
-        "name": "stage1_counts", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": launches,
-        "max_abs_err": max_err, "exact": max_err == 0,
-        "ms": k_ms, "kernel_ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-        "bound_by": b_by, "library_ms": None,
-    }]}
+    # ---- 10. result lines
+    kernels = {"kernels": []}
+    for k in [k_stage1] + k_sort:
+        src, replaces = KERNELS[k["name"]]
+        kernels["kernels"].append({
+            "name": k["name"], "route": "cuda", "source": src,
+            "replaces": replaces, **{key: v for key, v in k.items()
+                                     if key != "name"},
+        })
     record = {
         "device": kind, "nvidia_smi": smi, "proteins": PROTEINS,
         "peptides": len(db), "fragments": int(db.num_fragments),
-        "db_build_s": db_s, "kernel_build_s": build_s,
-        "batch": batch, "wall_s_2_batches": wall_s,
-        "spectra_per_s": 2 * batch / wall_s, "launches_per_batch": per_batch,
-        "peak_device_gib": peak_gib,
-        "plan": [list(e) for e in lp["plan"]], "seg_rows": lp["seg_rows"],
-        "batch_breakdown": breakdown,
-        **kernels,
+        "kernel_build_s": build_s, "phase_s": times, "narrow": narrow,
+        "open": open_rec, **kernels,
     }
-    log("# record: " + json.dumps(record))
+    log("# record: " + json.dumps(record, default=str))
     print(json.dumps(kernels), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,16 +1,19 @@
-"""The search engine's narrow path in PyTorch: batched spectrum scoring on
+"""The search engine's fused path in PyTorch: batched spectrum scoring on
 an NVIDIA GPU (or, with ``device="cpu"``, on the CPU with every kernel's
 plain version).
 
-Counterpart of ``sage_tpu/ops/search.py``. Stage 1 is candidate-major:
-each query row's precursor window is a contiguous slice of the
-mass-sorted ladder table, and matches are counted with the
-rank-difference trick ``#(lo_q <= f) - #(hi_q < f)`` over the
-per-charge query-window bounds (the CUDA kernel in
-``csrc/stage1_counts.cu``). One merge/rescore/select pass then keeps the
-top-K candidates per spectrum by the PreScore order, rescores them with
-full ladders, and selects the reported rows by an f32 hyperscore key
-that the host verifies with exact f64 arithmetic.
+Counterpart of ``sage_tpu/ops/search.py``. Narrow windows take the
+candidate-major stage 1: each query row's precursor window is a
+contiguous slice of the mass-sorted ladder table, and matches are
+counted with the rank-difference trick ``#(lo_q <= f) - #(hi_q < f)``
+over the per-charge query-window bounds (the CUDA kernel in
+``csrc/stage1_counts.cu``). Windows of ``SAGE_TPU_OPEN_THRESHOLD`` (8192)
+candidates or more take the peak-major open search
+(``ops/open_search.py``, whose entry rows the bitonic kernels of
+``csrc/bitonic_sort.cu`` sort). One merge/rescore/select pass then keeps
+the top-K candidates per spectrum by the PreScore order, rescores them
+with full ladders, and selects the reported rows by an f32 hyperscore
+key that the host verifies with exact f64 arithmetic.
 
 Every f32 value keeps the reference's op order: eager ops (never a
 fused multiply-add), divisions by device tensors (a CUDA division by a
@@ -18,7 +21,7 @@ host scalar is computed as a reciprocal multiply), and strictly
 sequential sums. Integer fields that the JAX package packs as int32 stay
 int32.
 
-Regimes outside the narrow fused path raise ``NotImplementedError``.
+Regimes outside the fused path raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -40,6 +43,15 @@ from .features import (
     Fragments,
     hyperscore_vec,
     log10_poisson_vec,
+)
+from .open_search import (
+    V_ROW,
+    OpenSearcher,
+    _device_open_count,
+    _quarter_octave,
+    _range_stats,
+    covered_bands,
+    spectrum_window_union,
 )
 from .pallas_stage1 import stage1_counts
 
@@ -82,15 +94,6 @@ def _pad_count(n: int) -> int:
     if n <= 2048:
         return next_power_of_two(n)
     return ((n + 2047) // 2048) * 2048
-
-
-def _quarter_octave(n: int) -> int:
-    """Smallest value >= n of the form (4..7) * 2^k — static-shape
-    padding with <= 4 buckets per octave and <= 12.5% mean waste."""
-    octave = 8
-    while octave * 2 <= n:
-        octave *= 2
-    return octave * (-(-n * 4 // octave)) // 4
 
 
 # Ladder-length classes for stage-1 row bucketing: a fixed value grid
@@ -637,6 +640,8 @@ class Scorer:
         self._cache: Dict[tuple, object] = {}
         self._plan_sticky: Dict[Tuple[int, int], tuple] = {}
         self._psm_counter = 1
+        self._open: Optional[OpenSearcher] = None
+        self.fused_reruns = 0
         self.last_plan: Optional[dict] = None
 
     # ------------------------------------------------------------------
@@ -674,6 +679,14 @@ class Scorer:
             return False
         thresh = int(os.environ.get("SAGE_TPU_OPEN_THRESHOLD", "8192"))
         return W >= thresh
+
+    def _open_searcher(self) -> OpenSearcher:
+        if self._open is None:
+            self._open = OpenSearcher(
+                self.db, self.params.fragment_tol, self.Z, K=self.K,
+                precursor_tol=self.params.precursor_tol, device=self.device,
+            )
+        return self._open
 
     def _narrow_banded_gate(self, W: int) -> bool:
         """The JAX package's default gate for its peak-major banded stage
@@ -814,7 +827,26 @@ class Scorer:
         masses, intens, Pk = self._pad_peaks(spectra)
         peaks_dev = self._peaks_device(masses, intens)
         rows = self._expand_rows(spectra)
-        fd = self._fused_dispatch(spectra, Pk, peaks_dev, rows=rows)
+        fd = self._fused_dispatch(spectra, masses, Pk, peaks_dev, rows=rows)
+        t = self._fused_finalize(spectra, fd, masses, intens, Pk)
+        if t is None:
+            t = self._rerun(spectra, masses, intens, Pk, peaks_dev, rows)
+        return t
+
+    def _rerun(self, spectra, masses, intens, Pk, peaks_dev, rows):
+        """Score a device-planned open batch again after its sticky shapes
+        overflowed (already grown by _fused_finalize). The JAX package
+        reruns it through its two-dispatch path, which records no sticky
+        shapes; the port reruns it through the host-planned open branch
+        of the fused path, with the same results and, skipping
+        note_shapes, the same sticky state."""
+        self.fused_reruns += 1
+        log.warning(
+            "open sticky shapes overflowed; re-running the batch through "
+            "the host-planned open path"
+        )
+        fd = self._fused_dispatch(spectra, masses, Pk, peaks_dev, rows=rows,
+                                  rerun=True)
         return self._fused_finalize(spectra, fd, masses, intens, Pk)
 
     def score_stream(self, batches):
@@ -829,7 +861,9 @@ class Scorer:
             rows = self._expand_rows(batch)
             return {
                 "batch": batch, "masses": masses, "intens": intens, "Pk": Pk,
-                "fd": self._fused_dispatch(batch, Pk, peaks_dev, rows=rows),
+                "peaks_dev": peaks_dev, "rows": rows,
+                "fd": self._fused_dispatch(batch, masses, Pk, peaks_dev,
+                                           rows=rows),
             }
 
         def advance(e):
@@ -841,6 +875,9 @@ class Scorer:
             return e
 
         def finish(e):
+            if e["table"] is None:
+                return self._rerun(e["batch"], e["masses"], e["intens"],
+                                   e["Pk"], e["peaks_dev"], e["rows"])
             return e["table"]
 
         yield from pipeline_stream(batches, admit, advance, finish)
@@ -884,17 +921,26 @@ class Scorer:
         )
         seg_meta = []
         off = 0
-        for Wb, _Lcb, Rb, _Zc in plan:
-            seg_meta.append((Wb <= K, Wb, Rb, off))
-            off += Rb
+        for entry in plan:
+            if entry[0] == "banded":
+                # an open-search pseudo-segment: its count core already
+                # produced the [R, 2K+2] top-K layout
+                seg_meta.append((False, None, entry[1], off))
+                off += entry[1]
+            else:
+                Wb, Rb = entry[0], entry[2]
+                seg_meta.append((Wb <= K, Wb, Rb, off))
+                off += Rb
         i32 = torch.int32
 
-        def run_inner(peaks_dev, ints, perm, seg_outs):
+        def run_inner(peaks_dev, ints, perm, seg_outs, tail_extra):
             # ints: [8, R_tot] i32 (spec, p0, i0, i1, maxz, z, iso, slot)
             # with spec == S_pad marking padding rows; perm: [S_pad *
             # G_eff] spectrum-major slot -> global stage-1 row (empty
             # slots point at the all-zero sentinel row R_tot); seg_outs:
-            # the stage-1 outputs, one per plan segment.
+            # the stage-1 outputs, one per plan segment; tail_extra: None
+            # or i32 device scalars (an open batch's per-class overflow
+            # statistics) that ride the tail row.
             canon = []
             for (co_b, Wb, Rb, o), packed in zip(seg_meta, seg_outs):
                 if co_b:  # [Rb, Wb+2] raw window counts -> top-K layout
@@ -1041,6 +1087,9 @@ class Scorer:
             )  # [S_pad, 7]
             tail = torch.zeros((1, 7), dtype=f32, device=dev)
             tail[0, 0] = total.to(f32)
+            if tail_extra is not None:
+                n_x = min(int(tail_extra.shape[0]), 6)
+                tail[0, 1 : 1 + n_x] = tail_extra[:n_x].to(f32)
             small = torch.cat([rows7, stats, tail], dim=0)
 
             # ---- untruncated per-item arrays, kept ON DEVICE for the
@@ -1102,10 +1151,19 @@ class Scorer:
         n_iso = max(p.max_isotope_err - p.min_isotope_err + 1, 1)
         return p.report_psms + n_iso + 14
 
-    def _fused_dispatch(self, spectra, Pk, peaks_dev, rows=None):
-        """Plan the batch's stage-1 segments, launch them and the merge
-        pass; returns the dispatch dict that _fused_finalize consumes.
-        Raises NotImplementedError for every regime outside the narrow
+    def _ksel_open(self) -> int:
+        """Open-search selection depth: wide windows give dense near-tie
+        clusters at the boundary, so a deeper fetch cuts guard
+        fallbacks."""
+        return self._ksel() + 5
+
+    def _fused_dispatch(self, spectra, masses, Pk, peaks_dev, rows=None,
+                        rerun=False):
+        """Plan the batch's stage-1 segments (narrow) or open-search
+        pseudo-segments, launch them and the merge pass; returns the
+        dispatch dict that _fused_finalize consumes. ``rerun`` plans an
+        open batch on the host without recording sticky shapes (see
+        _rerun). Raises NotImplementedError for every regime outside the
         fused path."""
         p = self.params
         # bit-packing preconditions (see _build_fused's output layout)
@@ -1118,7 +1176,7 @@ class Scorer:
             or p.max_isotope_err > 15
         ):
             raise NotImplementedError(
-                "the fused narrow path's packing preconditions do not hold "
+                "the fused path's packing preconditions do not hold "
                 f"(peptides={len(self.db)}, L={self.tables.L}, K={self.K}, "
                 f"max_precursor_charge={p.max_precursor_charge}, isotope "
                 f"errors {p.min_isotope_err}..{p.max_isotope_err}); the "
@@ -1139,12 +1197,8 @@ class Scorer:
         n_spec = len(spectra)
         max_win = int((rows["i1"] - rows["i0"]).max())
         W = min(next_power_of_two(max(max_win, 8)), self.tables.P_pad)
-        if self._open_path(W):
-            raise NotImplementedError(
-                f"open-search regime (window {W} >= SAGE_TPU_OPEN_THRESHOLD)"
-                " is not ported yet (ROADMAP Queue 1 item 7)"
-            )
-        if self._narrow_banded_gate(W):
+        open_regime = self._open_path(W)
+        if not open_regime and self._narrow_banded_gate(W):
             raise NotImplementedError(
                 f"narrow_banded stage 1 (window {W} >= 4096 on "
                 f"{self.db.num_fragments} fragments) is not ported yet "
@@ -1166,10 +1220,83 @@ class Scorer:
         cap = np.minimum(rows["z"], cfg + 1) if cfg is not None else rows["z"]
         maxz = np.maximum(cap, 2)
         Zb = min(max(int(maxz.max()) - 1, 1), self.Z)
-        width = (rows["i1"] - rows["i0"]).astype(np.int64)
 
-        # 2D (width, ladder-length) class plan: sticky classes,
-        # quarter-octave per-class row counts
+        open_sticky = None
+        if open_regime:
+            plan, ints, G_eff, open_segs, open_sticky = self._open_plan(
+                masses, rows, peaks_dev, S_pad, slot, starts, counts_r,
+                maxz, Zb, G_eff, rerun,
+            )
+            Ksel = min(self._ksel_open(), self.K)
+        else:
+            plan, ints, segs = self._narrow_plan(rows, S_pad, slot, maxz, Zb,
+                                                 W)
+            Ksel = min(self._ksel(), self.K)
+        R_tot = ints.shape[1]
+        # spectrum-major slot -> global stage-1 row permutation: the merge
+        # GATHERS rows into its [S_pad, G_eff] grid; empty slots point at
+        # the all-zero sentinel row
+        perm = np.full(S_pad * G_eff, R_tot, np.int64)
+        live_r = ints[0] < S_pad
+        perm[
+            ints[0, live_r].astype(np.int64) * G_eff + ints[7, live_r]
+        ] = np.flatnonzero(live_r)
+        perm_dev = _to_dev(perm, self.device)
+        ints_dev = _to_dev(ints, self.device)
+
+        # a device-planned open batch's overflow statistics ride the tail row
+        tail_extra = open_sticky.pop("stats") if open_sticky else None
+        seg_outs = []
+        if open_regime:
+            for seg in open_segs:
+                seg_outs.append(self._open_count(seg, Zb))
+        else:
+            off = 0
+            for (Wb, Lcb, Rb, Zc), idx_p in zip(plan, segs):
+                if idx_p.size == 0:
+                    # empty segment (the sticky catch-all class, or a
+                    # z-split side with no rows this batch): a cached zero
+                    # output — the merge's perm never references its rows
+                    cols = (Wb + 2) if Wb <= self.K else (2 * self.K + 2)
+                    zkey = ("zeros", Rb, cols)
+                    if zkey not in self._cache:
+                        self._cache[zkey] = torch.zeros(
+                            (Rb, cols), dtype=torch.int32, device=self.device
+                        )
+                    seg_outs.append(self._cache[zkey])
+                else:
+                    run_b, _co = self._stage1(Wb, Pk, Rb, Zc, Lcb)
+                    seg_outs.append(
+                        run_b(peaks_dev,
+                              ints_dev[:5, off : off + Rb].contiguous())
+                    )
+                off += Rb
+            self.last_plan = {
+                "plan": plan, "seg_rows": [int(s.size) for s in segs],
+                "G_eff": G_eff, "Zb": Zb, "W": W, "S_pad": S_pad,
+                "Ksel": Ksel,
+            }
+        fkey = ("fused", plan, Pk, S_pad, G_eff, Zb, Ksel)
+        if fkey not in self._cache:
+            self._cache[fkey] = self._build_fused(
+                plan, Pk, S_pad, G_eff, Zb, Ksel
+            )
+        small, items7, meta = self._cache[fkey](
+            peaks_dev, ints_dev, perm_dev, seg_outs, tail_extra
+        )
+        return {
+            "fused": small, "items7": items7, "meta": meta,
+            "n_rows": n_rows, "n_spec": n_spec,
+            "Ksel": Ksel, "S_pad": S_pad, "open_sticky": open_sticky,
+        }
+
+    def _narrow_plan(self, rows, S_pad, slot, maxz, Zb, W):
+        """The narrow regime's 2D (width, ladder-length) class plan:
+        sticky classes, quarter-octave per-class row counts. Returns the
+        plan's (Wb, Lcb, Rb, Zc) segments, the [8, R_tot] row table and
+        each segment's row indices."""
+        n_rows = rows["si"].size
+        width = (rows["i1"] - rows["i0"]).astype(np.int64)
         lneed = _window_lneed(
             self.db.table.lens, rows["i0"], rows["i1"],
             blkmax=self._lens_blk(),
@@ -1196,71 +1323,271 @@ class Scorer:
                 plan.append((Wb, Lcb, _quarter_octave(max(idx_p.size, 8)), Zc))
                 segs.append(idx_p)
         plan = tuple(plan)
-        R_tot = sum(e[2] for e in plan)
-        ints = np.zeros((8, R_tot), dtype=np.int32)
+        ints = np.zeros((8, sum(e[2] for e in plan)), dtype=np.int32)
         ints[0] = S_pad  # padding sentinel
         ints[4] = 2
         off = 0
         for (Wb, Lcb, Rb, _Zc), idx in zip(plan, segs):
             sl = slice(off, off + idx.size)
-            ints[0, sl] = si[idx]
             ints[1, sl] = np.minimum(rows["i0"][idx], self.tables.P_pad - Wb)
-            ints[2, sl] = rows["i0"][idx]
-            ints[3, sl] = rows["i1"][idx]
-            ints[4, sl] = maxz[idx]
-            ints[5, sl] = rows["z"][idx]
-            ints[6, sl] = rows["iso"][idx]
-            ints[7, sl] = slot[idx]
+            _fill_rows(ints, sl, rows, idx, maxz, slot[idx])
             off += Rb
+        return plan, ints, segs
 
-        Ksel = min(self._ksel(), self.K)
-        # spectrum-major slot -> global stage-1 row permutation: the merge
-        # GATHERS rows into its [S_pad, G_eff] grid; empty slots point at
-        # the all-zero sentinel row
-        perm = np.full(S_pad * G_eff, R_tot, np.int64)
-        live_r = ints[0] < S_pad
-        perm[
-            ints[0, live_r].astype(np.int64) * G_eff + ints[7, live_r]
-        ] = np.flatnonzero(live_r)
-        perm_dev = _to_dev(perm, self.device)
-        ints_dev = _to_dev(ints, self.device)
-
-        seg_outs = []
-        off = 0
-        for (Wb, Lcb, Rb, Zc), idx_p in zip(plan, segs):
-            if idx_p.size == 0:
-                # empty segment (the sticky catch-all class, or a z-split
-                # side with no rows this batch): a cached zero output —
-                # the merge's perm never references its rows
-                cols = (Wb + 2) if Wb <= self.K else (2 * self.K + 2)
-                zkey = ("zeros", Rb, cols)
-                if zkey not in self._cache:
-                    self._cache[zkey] = torch.zeros(
-                        (Rb, cols), dtype=torch.int32, device=self.device
-                    )
-                seg_outs.append(self._cache[zkey])
+    def _open_plan(self, masses, rows, peaks_dev, S_pad, slot, starts,
+                   counts_r, maxz, Zb, G_eff, rerun):
+        """The open regime's plan: one or more ("banded", R_b)
+        pseudo-segments whose count core produces the [R_b, 2K+2] top-K
+        layout. The first batch, an oversized one and a rerun plan on the
+        host (searchsorted ranges); every other batch plans its ranges on
+        the device under the sticky shapes that the host-planned batches
+        recorded, in one class or in up to three slot size classes, with
+        a device-computed overflow check (``open_sticky``, read by
+        _fused_finalize). Returns (plan, ints, G_eff, open_segs,
+        open_sticky)."""
+        os_ = self._open_searcher()
+        n_spec = masses.shape[0]
+        n_rows = rows["si"].size
+        si = rows["si"]
+        stk = os_._sticky_shapes
+        u0, u1 = spectrum_window_union(rows, n_spec)
+        b0_u, _b1, nbc = covered_bands(u0, u1, os_.band_w, os_.n_bands,
+                                       n_spec)
+        open_sticky = None
+        if not rerun and stk is not None:
+            # class-aware element budget: each live (spectrum, band) slot
+            # rides its own size class
+            classes = stk["classes"]
+            eb_pred, valid_b = os_.est_band_sizes(masses, u0, u1)
+            ci = os_.assign_classes(eb_pred)
+            if ci is None:
+                elems = n_spec * nbc * stk["F"]
             else:
-                run_b, _co = self._stage1(Wb, Pk, Rb, Zc, Lcb)
-                seg_outs.append(
-                    run_b(peaks_dev, ints_dev[:5, off : off + Rb].contiguous())
+                cif = ci[valid_b]
+                elems = sum(int((cif == c).sum()) * classes[c]["F"]
+                            for c in range(len(classes)))
+            if elems <= os_.MAX_ELEMENTS:
+                open_sticky = dict(stk)
+        if open_sticky is None:
+            return self._open_host_plan(os_, masses, rows, S_pad, slot,
+                                        maxz, Zb, G_eff, u0, u1, rerun)
+
+        chunked = open_sticky["chunked"]
+        classes = open_sticky["classes"]
+        segs, plan_l, stats_l, ints_cols = [], [], [], []
+        open_sticky.update(cls_of_side=[], F_effs=[], Wcs=[])
+
+        def add_side(c, seg, stats, cols):
+            cl = classes[c]
+            F_b = min(cl["F"], cl["Wc"] * V_ROW) if chunked else cl["F"]
+            seg.update(F_b=F_b, Wc_b=cl["Wc"], chunked=chunked)
+            segs.append(seg)
+            plan_l.append(("banded", seg["R_b"]))
+            stats_l.append(stats)
+            ints_cols.append(cols)
+            open_sticky["cls_of_side"].append(c)
+            open_sticky["F_effs"].append(F_b)
+            open_sticky["Wcs"].append(cl["Wc"])
+
+        # membership needs a calibrated multi-class state and at least
+        # one live slot; otherwise (every class empty included) the whole
+        # batch takes the single-class layout
+        if ci is None or not valid_b.any():
+            # single class: the band-major count core over the [B, nbcov]
+            # grid, ranges from the grid probe
+            st_dev, ln_dev, nbc = os_.ranges_device(peaks_dev, u0, u1, Zb)
+            Pk_eff = int(st_dev.shape[1]) // max(Zb * nbc, 1)
+            idx = np.arange(n_rows)
+            seg = self._open_rows(idx, si, rows, maxz)
+            seg.update(starts=st_dev, lens=ln_dev, Pk_eff=Pk_eff, nbcov=nbc)
+            cols = _open_ints(seg["R_b"], S_pad, rows, idx, maxz, slot[idx])
+            add_side(len(classes) - 1, seg,
+                     _range_stats(st_dev, ln_dev, nbcov=nbc, Zb=Zb,
+                                  Pk=Pk_eff), cols)
+        else:
+            # each live (spectrum, band) slot becomes a pseudo-row of the
+            # class that fits its estimate; the range probe runs slot-major
+            # over live slots only, and the merge recombines a spectrum's
+            # slots exactly
+            Pk_eff = int(masses.shape[1])
+            ci_flat = ci.reshape(-1)
+            live = valid_b.reshape(-1)
+            for c in range(len(classes)):
+                slot_ids = np.flatnonzero(live & (ci_flat == c))
+                if slot_ids.size == 0:
+                    continue
+                s_arr = slot_ids // nbc
+                k_arr = slot_ids % nbc
+                # quarter-octave padded slot axis; padding slots are
+                # invalid and probe to all-zero ranges
+                n_sl = slot_ids.size
+                NS_pad = _quarter_octave(max(n_sl, 8))
+                spec_p = np.zeros(NS_pad, np.int64)
+                band_p = np.zeros(NS_pad, np.int64)
+                valid_p = np.zeros(NS_pad, bool)
+                spec_p[:n_sl] = s_arr
+                band_p[:n_sl] = np.clip(b0_u[s_arr] + k_arr, 0,
+                                        os_.n_bands - 1)
+                valid_p[:n_sl] = True
+                # pseudo-rows: every query row of each slot's spectrum
+                cnts = counts_r[s_arr]
+                n_ps = int(cnts.sum())
+                cum0 = np.concatenate([[0], np.cumsum(cnts)[:-1]])
+                r_idx = (np.repeat(starts[s_arr], cnts)
+                         + (np.arange(n_ps) - np.repeat(cum0, cnts))
+                         ).astype(np.int64)
+                seg = self._open_rows(
+                    r_idx, np.repeat(np.arange(n_sl), cnts), rows, maxz,
+                    sentinel=n_sl,
                 )
-            off += Rb
-        self.last_plan = {
-            "plan": plan, "seg_rows": [int(s.size) for s in segs],
-            "G_eff": G_eff, "Zb": Zb, "W": W, "S_pad": S_pad, "Ksel": Ksel,
-        }
-        fkey = ("fused", plan, Pk, S_pad, G_eff, Zb, Ksel)
-        if fkey not in self._cache:
-            self._cache[fkey] = self._build_fused(
-                plan, Pk, S_pad, G_eff, Zb, Ksel
+                st_c, ln_c = os_.ranges_device_slots(
+                    peaks_dev, spec_p, band_p, valid_p, Zb
+                )
+                seg.update(starts=st_c, lens=ln_c, Pk_eff=Pk_eff, nbcov=1)
+                # merge coordinates: one slot per (query row, band)
+                cols = _open_ints(
+                    seg["R_b"], S_pad, rows, r_idx, maxz,
+                    slot[r_idx] * nbc + np.repeat(k_arr, cnts),
+                )
+                add_side(c, seg,
+                         _range_stats(st_c, ln_c, nbcov=1, Zb=Zb, Pk=Pk_eff),
+                         cols)
+            # merge-grid slots are (query row, band) pairs now
+            G_eff = next_power_of_two(
+                max((int(slot.max(initial=0)) + 1) * nbc, 1)
             )
-        small, items7, meta = self._cache[fkey](
-            peaks_dev, ints_dev, perm_dev, seg_outs
+        open_sticky["stats"] = torch.cat(stats_l)
+        open_sticky["os"] = os_
+        self._note_open_plan(os_, True, nbc, plan_l, segs)
+        return (tuple(plan_l), np.concatenate(ints_cols, axis=1), G_eff, segs,
+                open_sticky)
+
+    def _open_host_plan(self, os_, masses, rows, S_pad, slot, maxz, Zb,
+                        G_eff, u0, u1, rerun):
+        """Host-planned open batch: searchsorted ranges, at most one split
+        level (two pseudo-segments), and — unless ``rerun`` — the sticky
+        shapes and slot size classes that later batches plan under."""
+        n_spec = masses.shape[0]
+        n_rows = rows["si"].size
+        si = rows["si"]
+        g_starts, g_lens, Pk_eff, chunked, size, Wc, _F, nbcov_g = (
+            os_._geometry(masses, rows, Zb, None)
         )
-        return {
-            "fused": small, "items7": items7, "meta": meta,
-            "n_rows": n_rows, "n_spec": n_spec,
-            "Ksel": Ksel, "S_pad": S_pad,
+        split = os_._find_split(n_spec, size, nbcov_g)
+        if split is not None:
+            # one split level is two pseudo-segments; deeper recursion
+            # needs the two-dispatch path
+            for s_ids in (np.flatnonzero(split), np.flatnonzero(~split)):
+                if s_ids.size and (
+                    s_ids.size * nbcov_g * (int(size[s_ids].max()) + 1)
+                    > os_.MAX_ELEMENTS
+                ):
+                    raise NotImplementedError(
+                        "open batch over the element budget after one "
+                        "split level: the recursive split runs through the "
+                        "two-dispatch path, which is not ported yet "
+                        "(ROADMAP Queue 1 item 2)"
+                    )
+        # per-spectrum max over covered bands of that band's entry count:
+        # the unit the band-major count core pads F to
+        tot_sb = g_lens.reshape(n_spec, Zb, nbcov_g, Pk_eff).sum(axis=(1, 3))
+        totals = tot_sb.max(axis=1)
+        if not rerun:
+            g_ends = g_starts + g_lens
+            rows_sb = np.where(
+                g_lens > 0,
+                (g_ends + (V_ROW - 1)) // V_ROW - g_starts // V_ROW,
+                0,
+            ).reshape(n_spec, Zb, nbcov_g, Pk_eff).sum(axis=(1, 3))
+            eb_t, valid_t = os_.est_band_sizes(masses, u0, u1)
+            os_.note_shapes(
+                chunked, Wc, int(totals.max(initial=0)),
+                slot_sizes=tot_sb.astype(np.float64), slot_ests=eb_t,
+                slot_valid=valid_t, slot_rows=rows_sb.astype(np.float64),
+            )
+        sides = (
+            [np.arange(n_spec)] if split is None
+            else [np.flatnonzero(split), np.flatnonzero(~split)]
+        )
+        segs, plan_l, ints_cols = [], [], []
+        for spec_ids in sides:
+            whole = len(sides) == 1
+            rows_idx = (np.arange(n_rows) if whole
+                        else np.flatnonzero(np.isin(si, spec_ids)))
+            if chunked:
+                tc_b = size[spec_ids] // V_ROW
+                Wc_b = _quarter_octave(max(int(tc_b.max(initial=8)), 8))
+            else:
+                Wc_b = 8
+            F_b = _quarter_octave(int(totals[spec_ids].max(initial=0)) + 1)
+            F_b = ((max(F_b, self.K, 128) + 127) // 128) * 128
+            if chunked:
+                F_b = min(F_b, Wc_b * V_ROW)
+            remap = np.full(n_spec, -1, np.int64)
+            remap[spec_ids] = np.arange(spec_ids.size)
+            seg = self._open_rows(rows_idx, remap[si[rows_idx]], rows, maxz,
+                                  sentinel=spec_ids.size)
+            seg.update(
+                F_b=F_b, Wc_b=Wc_b, chunked=chunked, Pk_eff=Pk_eff,
+                nbcov=nbcov_g,
+                starts=g_starts if whole else g_starts[spec_ids],
+                lens=g_lens if whole else g_lens[spec_ids],
+            )
+            segs.append(seg)
+            plan_l.append(("banded", seg["R_b"]))
+            ints_cols.append(_open_ints(seg["R_b"], S_pad, rows, rows_idx,
+                                        maxz, slot[rows_idx]))
+        self._note_open_plan(os_, False, nbcov_g, plan_l, segs)
+        return (tuple(plan_l), np.concatenate(ints_cols, axis=1), G_eff, segs,
+                None)
+
+    @staticmethod
+    def _open_rows(idx, lspec_real, rows, maxz, sentinel=None):
+        """The count core's query-row inputs for one pseudo-segment: rows
+        ``idx`` of the batch, each reading pseudo-row ``lspec_real``,
+        padded to a power of two with rows of spectrum ``sentinel``
+        (default: the batch size) and an empty [0, 0) window."""
+        n = idx.size
+        R_b = next_power_of_two(max(n, 8))
+        lspec = np.full(R_b, rows["si"].size if sentinel is None
+                        else sentinel, np.int32)
+        li0 = np.zeros(R_b, np.int32)
+        li1 = np.zeros(R_b, np.int32)
+        lmz = np.full(R_b, 2, np.int32)
+        lspec[:n] = lspec_real
+        li0[:n] = rows["i0"][idx]
+        li1[:n] = rows["i1"][idx]
+        lmz[:n] = maxz[idx]
+        return {"R_b": R_b, "lspec": lspec, "li0": li0, "li1": li1,
+                "lmz": lmz}
+
+    def _open_count(self, seg, Zb):
+        """Launch one open pseudo-segment's count core."""
+        os_ = self._open_searcher()
+
+        def dev(a):
+            return a if isinstance(a, torch.Tensor) else _to_dev(a,
+                                                                 self.device)
+
+        return _device_open_count(
+            os_.frag_pep8_dev, dev(seg["starts"]), dev(seg["lens"]),
+            dev(seg["lspec"]), dev(seg["li0"]), dev(seg["li1"]),
+            dev(seg["lmz"]),
+            F=seg["F_b"], Wc=seg["Wc_b"], Pk=seg["Pk_eff"], Z=Zb, K=self.K,
+            R=seg["R_b"], chunked=seg["chunked"], nbcov=seg["nbcov"],
+            n_pep=os_.n_pep,
+        )
+
+    def _note_open_plan(self, os_, device_planned, nbcov, plan, segs):
+        self.last_plan = {
+            "open": True, "device_planned": device_planned,
+            "n_bands": os_.n_bands, "nbcov": nbcov, "plan": tuple(plan),
+            "F": [s["F_b"] for s in segs], "Wc": [s["Wc_b"] for s in segs],
+            "chunked": bool(segs[0]["chunked"]) if segs else None,
+            "classes": (
+                [dict(c) for c in os_._sticky_shapes["classes"]]
+                if os_._sticky_shapes else None
+            ),
         }
 
     def _fused_finalize(self, spectra, d, masses, intens, Pk, packed=None):
@@ -1272,9 +1599,33 @@ class Scorer:
         and verifies per spectrum that no unfetched candidate (whose f32
         key is bounded by the fetched ``b32``) could reach the reported
         set. Spectra that trip the guard are recomputed from the
-        untruncated on-device candidate arrays."""
+        untruncated on-device candidate arrays.
+
+        Returns None when a device-planned open batch overflowed its
+        sticky shapes: its entries may have been truncated, so the
+        overflowed classes grow and the caller reruns the batch."""
         if packed is None:
             packed = d["fused"].cpu().numpy()
+        ost = d.get("open_sticky")
+        if ost is not None:
+            # the device reported each size class's true max per-(spectrum,
+            # band) entry and gather-row totals through the tail row
+            bad = False
+            for i, c in enumerate(ost["cls_of_side"]):
+                tot_e = int(packed[-1, 1 + 2 * i])
+                tot_r = int(packed[-1, 2 + 2 * i])
+                if tot_e >= ost["F_effs"][i] or (
+                    ost["chunked"] and tot_r > ost["Wcs"][i]
+                ):
+                    ost["os"].grow_shapes(tot_e, tot_r, ci=c)
+                    log.info(
+                        "open sticky class %d shapes exceeded (entries %d "
+                        "vs F %d, rows %d vs Wc %d); growing", c, tot_e,
+                        ost["F_effs"][i], tot_r, ost["Wcs"][i],
+                    )
+                    bad = True
+            if bad:
+                return None
         S_pad, Ksel = d["S_pad"], d["Ksel"]
         n_spec = d["n_spec"]
         p = self.params
@@ -1673,6 +2024,29 @@ class Scorer:
                     frags.fragment_ordinals.append(int(ordinal))
                     frags.intensities.append(float(sv[pk]))
         return frags
+
+
+def _fill_rows(ints, sl, rows, idx, maxz, slot_vals):
+    """Fill the merge's row-table columns (spectrum, i0, i1, maxz, z, iso,
+    slot) of the [8, R] i32 ``ints`` at ``sl`` from query rows ``idx``;
+    ``slot_vals`` are the rows' merge-grid slots."""
+    ints[0, sl] = rows["si"][idx]
+    ints[2, sl] = rows["i0"][idx]
+    ints[3, sl] = rows["i1"][idx]
+    ints[4, sl] = maxz[idx]
+    ints[5, sl] = rows["z"][idx]
+    ints[6, sl] = rows["iso"][idx]
+    ints[7, sl] = slot_vals
+
+
+def _open_ints(R_b, S_pad, rows, idx, maxz, slot_vals):
+    """The [8, R_b] row table of one open pseudo-segment; padding rows
+    carry the spectrum sentinel S_pad."""
+    ints = np.zeros((8, R_b), dtype=np.int32)
+    ints[0] = S_pad
+    ints[4] = 2
+    _fill_rows(ints, slice(0, idx.size), rows, idx, maxz, slot_vals)
+    return ints
 
 
 def _host_ladders(db: IndexedDatabase, pep_indices, series) -> np.ndarray:

@@ -1,5 +1,6 @@
-"""The port on a CUDA device: the stage-1 kernel against its plain version
-on the card, and the whole narrow path on the card against the CPU.
+"""The port on a CUDA device: the stage-1 and bitonic-sort kernels against
+their plain versions on the card, and the whole narrow and open paths on
+the card against the CPU.
 Every test here needs a card; where there is none they skip.
 
 Run on a machine with a card (the variable keeps conftest.py from
@@ -15,7 +16,7 @@ from sage_tpu_torch.bench_baseline import synth_fasta, synth_spectra
 from sage_tpu_torch.chem.fasta import Fasta
 from sage_tpu_torch.chem.mass import Tolerance
 from sage_tpu_torch.index.builder import DatabaseParams
-from sage_tpu_torch.ops import pallas_stage1
+from sage_tpu_torch.ops import pallas_sort, pallas_stage1
 from sage_tpu_torch.ops.search import Scorer, SearchParams
 
 pytestmark = pytest.mark.gpu
@@ -89,3 +90,50 @@ def test_narrow_path_card_matches_cpu(cuda, small):
     for k in t_cpu.columns:
         np.testing.assert_array_equal(t_gpu.columns[k], t_cpu.columns[k],
                                       err_msg=f"column {k}")
+
+
+@pytest.mark.parametrize("B,F,block", [
+    (3, 1, None), (7, 100, None), (64, 4096, None), (5, 32768, None),
+    (4, 70000, None), (6, 5000, 1024), (3, 40000, 4096),
+])
+def test_sort_kernels_match_plain(cuda, B, F, block):
+    """One-pass rows up to 2^15 keys and the hierarchical path (block
+    sorts, flip/cross passes, merge kernel): bit-equal to the plain
+    version and to torch.sort, with sentinel keys and duplicates."""
+    rng = np.random.default_rng(B * 31 + F)
+    x = rng.integers(-50, 50, size=(B, F)).astype(np.int32)
+    x[:, F // 2:F // 2 + 7] = 2**31 - 1
+    xd = torch.from_numpy(x).to(cuda)
+    before = dict(pallas_sort.launches)
+    got = pallas_sort.bitonic_sort_rows(xd, block=block)
+    torch.cuda.synchronize()
+    assert pallas_sort.launches["bitonic_sort"] == before["bitonic_sort"] + 1
+    hier = (1 << max(F - 1, 0).bit_length()) > (block or pallas_sort._BLOCK_MAX)
+    assert (pallas_sort.launches["bitonic_merge"]
+            > before["bitonic_merge"]) == hier
+    want = pallas_sort.bitonic_sort_rows(torch.from_numpy(x), block=block)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(got, torch.sort(xd, dim=1).values)
+
+
+def test_open_path_card_matches_cpu(cuda, small, monkeypatch):
+    """The open search (-500/+100 Da) on the card, sort kernel included,
+    against the CPU: every FeatureTable column equal."""
+    db, spectra = small
+    monkeypatch.setenv("SAGE_TPU_OPEN_THRESHOLD", "1")
+    params = SearchParams(
+        precursor_tol=Tolerance("da", -500.0, 100.0),
+        fragment_tol=Tolerance("ppm", -10.0, 10.0), report_psms=2,
+    )
+    before = pallas_sort.launches["bitonic_sort"]
+    gpu = Scorer(db, params, device=cuda)
+    t_gpu = list(gpu.score_stream([spectra[:96], spectra[96:192]]))
+    assert gpu.last_plan.get("open")
+    assert pallas_sort.launches["bitonic_sort"] > before
+    cpu = Scorer(db, params, device="cpu")
+    t_cpu = list(cpu.score_stream([spectra[:96], spectra[96:192]]))
+    for a, b in zip(t_gpu, t_cpu):
+        assert len(a) == len(b) > 0
+        for k in b.columns:
+            np.testing.assert_array_equal(a.columns[k], b.columns[k],
+                                          err_msg=f"column {k}")

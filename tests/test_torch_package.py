@@ -37,6 +37,8 @@ def test_imports_with_jax_and_sage_tpu_blocked():
         "sys.modules['sage_tpu'] = None\n"
         "import sage_tpu_torch.ops.search\n"
         "import sage_tpu_torch.ops.pallas_stage1\n"
+        "import sage_tpu_torch.ops.pallas_sort\n"
+        "import sage_tpu_torch.ops.open_search\n"
         "import sage_tpu_torch.bench_baseline\n"
         "import sage_tpu_torch.index.builder\n"
         "assert 'jax' not in [m.split('.')[0] for m in sys.modules"
@@ -107,8 +109,9 @@ def _one_spectrum(db, charge=2):
     ["chimera", "open", "banded", "isotope_range", "overflow"],
 )
 def test_out_of_slice_regimes_raise(regime, monkeypatch):
-    """Each regime outside the narrow fused path raises
-    NotImplementedError naming its ROADMAP item; none falls back."""
+    """Each regime outside the fused path raises NotImplementedError
+    naming its ROADMAP item; none falls back. "open" is an open-search
+    batch over the element budget after one split level."""
     import sage_tpu_torch.chem.mass as tmass
     from sage_tpu_torch.ops.search import Scorer, SearchParams
 
@@ -130,8 +133,12 @@ def test_out_of_slice_regimes_raise(regime, monkeypatch):
         return
     scorer = Scorer(db, params, device="cpu")
     if regime == "open":
+        from sage_tpu_torch.ops.open_search import OpenSearcher
+
         monkeypatch.setenv("SAGE_TPU_OPEN_THRESHOLD", "8")
-        match = "Queue 1 item 7"
+        monkeypatch.setattr(OpenSearcher, "MAX_ELEMENTS", 1)
+        spec = spec + [_one_spectrum(db, charge=3)]
+        match = "Queue 1 item 2"
     elif regime == "banded":
         monkeypatch.setenv("SAGE_TPU_OPEN_THRESHOLD", "999999999")
         monkeypatch.setattr(Scorer, "_narrow_banded_gate", lambda self, W: True)

@@ -9,9 +9,10 @@ Phases, each of which fails the run when it fails (each prints its
 seconds):
 
 1. Device: the card's name and power limit; exits non-zero without CUDA.
-2. Build: both kernel sources (csrc/stage1_counts.cu, csrc/bitonic_sort.cu)
-   with nvcc, side by side, printing ptxas's registers / shared-memory
-   lines and the build time.
+2. Build: the three kernel sources (csrc/stage1_counts.cu,
+   csrc/row_sort.cu, csrc/bitonic_merge.cu) with nvcc, side by side,
+   printing ptxas's registers / shared-memory / spill lines and the
+   build time.
 3. Narrow main path at full width: bench.py's workload (synth_fasta(20000)
    with C+57.0215 static and M+15.9949 variable mods, 2 batches of 8192
    synthetic spectra, precursor +-20 ppm, fragment +-10 ppm) through
@@ -21,17 +22,22 @@ seconds):
    broken down: host phases (synchronised) and, under torch.profiler,
    the device's busy time and top kernels.
 4. Stage-1 kernel against plain: the kernel against its plain PyTorch
-   version on the same CUDA tensors, at random segment shapes and at the
-   main path's own segments; the int32 outputs must be equal. Both are
-   timed with CUDA events at the main path's segments, beside the card's
-   bound for the same work.
+   version on the same CUDA tensors, at random segment shapes (among
+   them shapes at the tiling's ragged edges: S * Lc off multiples of 32,
+   Pk off multiples of 4, odd W, Z = 3, pct tolerances, empty windows)
+   and at the main path's own segments; the int32 outputs must be equal.
+   Timed with CUDA events at the main path's segments, kernel, plain
+   version, kernel again, beside the card's bound for the same work and
+   the kernel's share of it, and beside a second bound over real work
+   only (finite peaks and ladder slots: the pads match nothing) and the
+   share of the compares that are pads.
 5. Narrow card against CPU: the first 512 spectra scored on the card and
    on the CPU (plain versions); every FeatureTable column must be equal.
 6. Open path at full width: bench.py's open workload (the same database,
    precursor -500/+100 Da, fragment +-10 ppm, 4 batches of 512 spectra
    after one warm-up batch) through ``score_stream``. The sort kernels'
    counters are set to 0 just before and read just after; every batch
-   must launch the sort kernel. Prints the bands, nbcov, the size
+   must launch the row-sort kernel. Prints the bands, nbcov, the size
    classes, F per segment, the device-planned batches and the reruns,
    the wall rate and peak memory, and one batch's profile with named
    ranges around the range probe, the count core and the sort.
@@ -41,12 +47,14 @@ seconds):
    default run's.
 8. Sort kernels against plain: each kernel against its plain version at
    the open path's captured shapes and at random shapes up to 2^17 keys
-   a row; the outputs must be bit-equal (and equal torch.sort). Timed
-   with CUDA events beside torch.sort and the card's bound: the sort
-   kernel at a device-planned batch's shapes and at the host-planned
-   warm-up batch's, the merge kernel at the 2^15-key blocks the main
-   path gives it for rows past the one-pass limit and at phase 7's
-   lowered-limit blocks.
+   a row, full-int32-range and all-equal rows among them; the outputs
+   must be bit-equal (and equal torch.sort). Timed with CUDA events
+   beside torch.sort and the card's bound, kernel, torch.sort, kernel
+   again, each shape with its share of the bound: the row-sort kernel at
+   a device-planned batch's shapes and at the host-planned warm-up
+   batch's, the merge kernel at the 2^15-key blocks the main path gives
+   it for rows past the one-pass limit and at phase 7's lowered-limit
+   blocks.
 9. Open card against CPU: 128 open spectra on the card and on the CPU;
    every FeatureTable column must be equal.
 10. The ``kernels`` JSON line, the nvidia-smi line, and the final
@@ -84,9 +92,9 @@ PROTEINS = 20000
 KERNELS = {
     "stage1_counts": ("sage_tpu_torch/csrc/stage1_counts.cu",
                       "sage_tpu/ops/pallas_stage1.py:49"),
-    "bitonic_sort": ("sage_tpu_torch/csrc/bitonic_sort.cu",
-                     "sage_tpu/ops/pallas_sort.py:52"),
-    "bitonic_merge": ("sage_tpu_torch/csrc/bitonic_sort.cu",
+    "row_sort": ("sage_tpu_torch/csrc/row_sort.cu",
+                 "sage_tpu/ops/pallas_sort.py:52"),
+    "bitonic_merge": ("sage_tpu_torch/csrc/bitonic_merge.cu",
                       "sage_tpu/ops/pallas_sort.py:73"),
 }
 # bench.py's open workload (bench.py:63-65, 683-699)
@@ -157,6 +165,25 @@ def segment_work(ints, W, Lc, Z, S, Pk, B):
     nbytes = (R * W * S * Lc * 4 + B * Pk * 4 + 5 * R * 4
               + R * (W + 2) * 4)
     return float(nbytes), ops
+
+
+def segment_real_ops(torch, lad, peaks, ints, W, Lc, Z):
+    """The compares of one stage-1 segment over real work only: two per
+    (finite ladder slot of a live candidate, finite peak of its row's
+    spectrum, live plane). The +inf peak pads (each spectrum padded to
+    the batch's Pk) and the -inf slots past a peptide's length can match
+    nothing; :func:`segment_work` counts them, as the kernel does."""
+    P_pad, B = lad.shape[0], peaks.shape[0]
+    slots = torch.isfinite(lad[:, :, :Lc]).sum((1, 2)).long()
+    cum = torch.cat([slots.new_zeros(1), slots.cumsum(0)])
+    npk = torch.isfinite(peaks).sum(1).long()
+    spec, p0, i0, i1, maxz = (ints[j].long() for j in range(5))
+    p0 = p0.clamp(0, P_pad - W)
+    lo = torch.maximum(i0, p0).clamp(0, P_pad)
+    hi = torch.maximum(torch.minimum(i1, p0 + W).clamp(0, P_pad), lo)
+    zact = (maxz - 1).clamp(0, Z)
+    return float(((cum[hi] - cum[lo]) * npk[spec.clamp(0, B - 1)]
+                  * zact).sum()) * 2
 
 
 def sort_work(rows, F):
@@ -277,9 +304,9 @@ def assert_tables_equal(a, b, what):
 
 
 def build_kernels(_cuda_build):
-    """Build both kernel sources side by side (one nvcc each), then load
+    """Build the kernel sources side by side (one nvcc each), then load
     them; the wrappers find the loaded libraries by name."""
-    names = ("stage1_counts", "bitonic_sort")
+    names = tuple(KERNELS)
     flags = ["-Xptxas", "-v"]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as ex:
@@ -293,7 +320,7 @@ def build_kernels(_cuda_build):
             if "registers" in line or "smem" in line or "spill" in line:
                 log(f"# ptxas {n}: {line.strip()}")
         log(f"# build: {n} in {secs:.2f} s")
-    log(f"# build: both sources in {build_s:.2f} s wall")
+    log(f"# build: {len(names)} sources in {build_s:.2f} s wall")
     return build_s
 
 
@@ -416,42 +443,89 @@ def narrow_phases(torch, tsearch, pallas_stage1, db, spectra, dev, times):
                     assert err == 0, (W, Z, tol, Lc, err)
                     max_err = max(max_err, err)
                     n_shapes += 1
+        # the tiling's ragged edges: S * Lc off multiples of 32, Pk off
+        # multiples of 4 (the peaks sliced), odd W, Z = 3, pct tolerances,
+        # empty windows (i1 <= i0) and rows with no live plane (maxz 1)
+        for W, Lc, pk, tol in ((33, 7, 37, ("pct", -0.002, 0.002)),
+                               (257, 11, Pk - 1, ("ppm", -10.0, 10.0)),
+                               (100, 13, 5, ("da", -0.02, 0.02)),
+                               (1, 1, 1, ("ppm", -10.0, 10.0)),
+                               (300, L, Pk - 3, ("pct", -0.001, 0.001))):
+            R = 333
+            p0 = rng.integers(0, len(db) - W, R)
+            i0 = p0 + rng.integers(-2, W // 4 + 2, R)
+            ints = np.stack([
+                rng.integers(0, 256, R), np.minimum(p0, P_pad - W), i0,
+                i0 + rng.integers(-1, W + 2, R), rng.choice([1, 2, 3, 4], R),
+            ]).astype(np.int32)
+            ints_d = torch.from_numpy(ints).to(dev)
+            peaks_k = peaks_r[:, :pk].contiguous()
+            kw = dict(W=W, Lc=min(Lc, L), Z=3, tol=tol)
+            got = pallas_stage1.stage1_counts(lad, peaks_k, ints_d, **kw)
+            want = pallas_stage1.stage1_counts_plain(lad, peaks_k, ints_d,
+                                                     **kw)
+            torch.cuda.synchronize()
+            err = int((got.long() - want.long()).abs().max())
+            assert err == 0, (W, Lc, pk, tol, err)
+            n_shapes += 1
         log(f"# kernel vs plain: {n_shapes} random segment shapes equal "
             f"(max |err| {max_err})")
 
+        # per captured segment: kernel, plain version, kernel again
         reps = 20
         k_ms = p_ms = 0.0
-        nbytes_t = ops_t = 0.0
+        nbytes_t = ops_t = real_t = 0.0
         for peaks, ints_d, kw in captured:
             got = pallas_stage1.stage1_counts(lad, peaks, ints_d, **kw)
             want = pallas_stage1.stage1_counts_plain(lad, peaks, ints_d, **kw)
             torch.cuda.synchronize()
             err = int((got.long() - want.long()).abs().max())
             assert err == 0, (kw, err)
-            km = cuda_ms(lambda: pallas_stage1.stage1_counts(
-                lad, peaks, ints_d, **kw), reps)
+
+            def kern():
+                return pallas_stage1.stage1_counts(lad, peaks, ints_d, **kw)
+
+            km1 = cuda_ms(kern, reps)
             pm = cuda_ms(lambda: pallas_stage1.stage1_counts_plain(
                 lad, peaks, ints_d, **kw), 3)
+            km2 = cuda_ms(kern, reps)
+            km = (km1 + km2) / 2
             nb, ops = segment_work(ints_d.cpu().numpy(), kw["W"], kw["Lc"],
                                    kw["Z"], S, peaks.shape[1], peaks.shape[0])
+            real = segment_real_ops(torch, lad, peaks, ints_d, kw["W"],
+                                    kw["Lc"], kw["Z"])
             bm, by = bound_ms(nb, ops, F32_COMPARES_PER_S)
+            rm, _ = bound_ms(nb, real, F32_COMPARES_PER_S)
             log(f"# segment W={kw['W']} Lc={kw['Lc']} R={ints_d.shape[1]} "
-                f"Z={kw['Z']}: kernel {km:.4f} ms, plain {pm:.3f} ms, bound "
-                f"{bm:.4f} ms ({by}; {nb / 1e6:.2f} MB, {ops / 1e9:.3f} G "
-                f"compares)")
+                f"Pk={peaks.shape[1]} Z={kw['Z']}: kernel {km1:.4f} / "
+                f"{km2:.4f} ms, plain {pm:.3f} ms, bound {bm:.4f} ms ({by}; "
+                f"{nb / 1e6:.2f} MB, {ops / 1e9:.3f} G compares), share of "
+                f"bound {bm / km:.3f}; real-work bound {rm:.4f} ms "
+                f"({real / 1e9:.3f} G compares, pads {1 - real / ops:.3f} of "
+                f"the compares), share {rm / km:.3f}")
             k_ms += km
             p_ms += pm
             nbytes_t += nb
             ops_t += ops
+            real_t += real
         b_ms, b_by = bound_ms(nbytes_t, ops_t, F32_COMPARES_PER_S)
+        r_ms, r_by = bound_ms(nbytes_t, real_t, F32_COMPARES_PER_S)
         log(f"# stage1_counts per {batch}-spectrum batch ({len(captured)} "
             f"launches): kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, bound "
             f"{b_ms:.4f} ms ({b_by}; {nbytes_t / 1e6:.1f} MB at "
             f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s, {ops_t / 1e9:.2f} G f32 "
-            f"compares at {F32_COMPARES_PER_S / 1e12:.1f} T/s issue rate)")
+            f"compares at {F32_COMPARES_PER_S / 1e12:.1f} T/s issue rate); "
+            f"share of bound {b_ms / k_ms:.3f}")
+        log(f"# stage1_counts real-work bound (finite peaks and ladder slots "
+            f"only): {r_ms:.4f} ms ({r_by}; {real_t / 1e9:.2f} G compares, "
+            f"pads {1 - real_t / ops_t:.3f} of the compares above); share of "
+            f"it {r_ms / k_ms:.3f}")
     kernel = {"name": "stage1_counts", "launches": launches,
               "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
-              "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+              "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+              "bound_share": b_ms / k_ms, "real_bound_ms": r_ms,
+              "real_bound_by": r_by, "real_bound_share": r_ms / k_ms,
+              "pad_share_of_compares": 1 - real_t / ops_t}
 
     with Phase("5_narrow_card_vs_cpu", times):
         sub = b1[:512]
@@ -507,9 +581,9 @@ def open_phases(torch, tsearch, topen, pallas_sort, db, spectra, dev, times):
         real_dispatch = scorer._fused_dispatch
 
         def counting_dispatch(*a, **k):
-            n0 = pallas_sort.launches["bitonic_sort"]
+            n0 = pallas_sort.launches["row_sort"]
             d = real_dispatch(*a, **k)
-            per_batch.append((pallas_sort.launches["bitonic_sort"] - n0,
+            per_batch.append((pallas_sort.launches["row_sort"] - n0,
                               dict(scorer.last_plan)))
             return d
 
@@ -535,13 +609,13 @@ def open_phases(torch, tsearch, topen, pallas_sort, db, spectra, dev, times):
                 f"{p['classes']}")
         log(f"# open main path: {OPEN_BATCHES} x {B} spectra in "
             f"{wall_s:.3f} s wall = {OPEN_BATCHES * B / wall_s:.1f} "
-            f"spectra/s; sort launches {launches['bitonic_sort']}, merge "
+            f"spectra/s; sort launches {launches['row_sort']}, merge "
             f"launches {launches['bitonic_merge']}; {n_dev} of "
             f"{len(per_batch)} dispatches device-planned, {reruns} reruns; "
             f"peak device memory {peak_gib:.2f} GiB")
         assert len(per_batch) == OPEN_BATCHES + reruns
         assert all(n > 0 for n, _p in per_batch), per_batch
-        assert launches["bitonic_sort"] == sum(n for n, _p in per_batch)
+        assert launches["row_sort"] == sum(n for n, _p in per_batch)
         for t, bt in zip(tables, batches):
             assert len(t) > 0.9 * len(bt), (len(t), len(bt))
             assert np.isfinite(t.columns["hyperscore"]).all()
@@ -554,7 +628,7 @@ def open_phases(torch, tsearch, topen, pallas_sort, db, spectra, dev, times):
             torch, scorer, batches[0],
             [(topen, "_probe"), (tsearch, "_device_open_count"),
              (topen, "bitonic_sort_rows"), (tsearch, "rescore_candidate")],
-            {"bitonic_sort": "bitonic_sort_blocks",
+            {"row_sort": "row_sort_kernel",
              "bitonic_merge": "bitonic_merge_blocks"},
         )
     out.update(batch=B, batches=OPEN_BATCHES, wall_s=wall_s,
@@ -603,7 +677,7 @@ def open_phases(torch, tsearch, topen, pallas_sort, db, spectra, dev, times):
             pallas_sort.merge_blocks = real_merge
         low_launches = dict(pallas_sort.launches)
         log(f"# lowered one-pass limit {LOWERED_BLOCK_MAX}: sort launches "
-            f"{low_launches['bitonic_sort']}, merge launches "
+            f"{low_launches['row_sort']}, merge launches "
             f"{low_launches['bitonic_merge']}, F per segment "
             f"{scorer.last_plan['F']}")
         assert low_launches["bitonic_merge"] > 0, low_launches
@@ -634,12 +708,20 @@ def open_phases(torch, tsearch, topen, pallas_sort, db, spectra, dev, times):
                 pallas_sort.sort_blocks_plain(x, cb, Fout, 2**31 - 1),
             ), (B_r, F_r)
             n_checked += 1
+        # every digit pass's edge: the full int32 range (its landmarks in
+        # every row) and all-equal rows (every pass skipped)
+        for kind in ("int32_range", "equal"):
+            for B_r, F_r in ((64, 20480), (32, 32768), (8, 131072)):
+                x = _edge_keys(torch, rng, kind, B_r, F_r, dev)
+                got = pallas_sort.bitonic_sort_rows(x)
+                assert torch.equal(got, torch.sort(x, dim=1).values), (
+                    kind, F_r)
+                if F_r <= pallas_sort._BLOCK_MAX:
+                    assert torch.equal(got, pallas_sort.sort_rows_plain(x))
+                n_checked += 1
         for x in warm_sorts + captured:
             got = pallas_sort.bitonic_sort_rows(x)
-            Fp = 1 << max(x.shape[1] - 1, 0).bit_length()
-            assert torch.equal(
-                got, pallas_sort.sort_blocks_plain(x, Fp, x.shape[1],
-                                                   2**31 - 1))
+            assert torch.equal(got, pallas_sort.sort_rows_plain(x))
             assert torch.equal(got, torch.sort(x, dim=1).values)
             n_checked += 1
         # the merge kernel at the block size the main path gives it (rows
@@ -674,9 +756,10 @@ def open_phases(torch, tsearch, topen, pallas_sort, db, spectra, dev, times):
                                f"{LOWERED_BLOCK_MAX}")
     out.update(sort_warmup=warm_sort_t, merge_forced=forced_t)
     kernels = [
-        {"name": "bitonic_sort", "launches": launches["bitonic_sort"],
+        {"name": "row_sort", "launches": launches["row_sort"],
          "max_abs_err": 0, **sort_t, "warmup_ms": warm_sort_t["ms"],
-         "warmup_library_ms": warm_sort_t["library_ms"]},
+         "warmup_library_ms": warm_sort_t["library_ms"],
+         "warmup_bound_ms": warm_sort_t["bound_ms"]},
         # the main path launches the merge kernel only for rows past 2^15
         # keys, which this workload never gives it; phase 7's lowered-limit
         # run launches it (forced_launches)
@@ -697,34 +780,40 @@ def open_phases(torch, tsearch, topen, pallas_sort, db, spectra, dev, times):
 
 
 def time_sorts(torch, pallas_sort, xs, what, reps=20):
-    """The sort kernel (through ``bitonic_sort_rows``), its plain version
-    and torch.sort on each input of ``xs``, timed with CUDA events and
-    summed, beside the card's bound for the same work."""
+    """The row-sort kernel (through ``bitonic_sort_rows``), torch.sort
+    and the kernel again, then its plain version, on each input of
+    ``xs``, timed with CUDA events and summed, beside the card's bound
+    for the same work and the kernel's share of it."""
     t = dict(ms=0.0, plain_ms=0.0, library_ms=0.0)
     nb_t = ops_t = 0.0
     for x in xs:
         R_x, F_x = x.shape
-        Fp = 1 << max(F_x - 1, 0).bit_length()
-        km = cuda_ms(lambda: pallas_sort.bitonic_sort_rows(x), reps)
-        pm = cuda_ms(lambda: pallas_sort.sort_blocks_plain(
-            x, Fp, F_x, 2**31 - 1), 3)
+        km1 = cuda_ms(lambda: pallas_sort.bitonic_sort_rows(x), reps)
         lm = cuda_ms(lambda: torch.sort(x, dim=1), reps)
+        km2 = cuda_ms(lambda: pallas_sort.bitonic_sort_rows(x), reps)
+        km = (km1 + km2) / 2
+        pm = cuda_ms(lambda: pallas_sort.sort_rows_plain(x), 2)
         nb, ops = sort_work(R_x, F_x)
         bm, by = bound_ms(nb, ops, INT32_OPS_PER_S)
-        log(f"# sort rows [{R_x}, {F_x}]: kernel {km:.4f} ms, plain "
-            f"{pm:.3f} ms, torch.sort {lm:.4f} ms, bound {bm:.4f} ms ({by})")
+        unranked = float((x == 2**31 - 1).float().mean())
+        log(f"# sort rows [{R_x}, {F_x}] (INT32_MAX share {unranked:.3f}): "
+            f"kernel {km1:.4f} / {km2:.4f} ms, torch.sort {lm:.4f} ms, plain "
+            f"{pm:.3f} ms, bound {bm:.4f} ms ({by}), share of bound "
+            f"{bm / km:.3f}")
         t["ms"] += km
         t["plain_ms"] += pm
         t["library_ms"] += lm
         nb_t += nb
         ops_t += ops
     t["bound_ms"], t["bound_by"] = bound_ms(nb_t, ops_t, INT32_OPS_PER_S)
-    log(f"# bitonic_sort per {what} ({len(xs)} launches): kernel "
+    t["bound_share"] = t["bound_ms"] / t["ms"]
+    log(f"# row_sort per {what} ({len(xs)} launches): kernel "
         f"{t['ms']:.4f} ms, plain {t['plain_ms']:.3f} ms, torch.sort "
         f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
         f"({t['bound_by']}; {nb_t / 1e6:.1f} MB at "
         f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s, {ops_t / 1e9:.3f} G compares at "
-        f"{INT32_OPS_PER_S / 1e12:.1f} T/s int32 issue rate)")
+        f"{INT32_OPS_PER_S / 1e12:.1f} T/s int32 issue rate), share of bound "
+        f"{t['bound_share']:.3f}")
     return t
 
 
@@ -748,6 +837,18 @@ def time_merges(torch, pallas_sort, inputs, what, reps=20):
         f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
         f"({t['bound_by']})")
     return t
+
+
+def _edge_keys(torch, rng, kind, B, F, dev):
+    """[B, F] i32 rows: the full int32 range with INT32_MIN, -1, 0 and
+    INT32_MAX in every row, or every row one repeated key."""
+    if kind == "equal":
+        x = np.full((B, F), rng.integers(-(2**31), 2**31), np.int32)
+    else:
+        x = rng.integers(-(2**31), 2**31, size=(B, F)).astype(np.int32)
+        x[:, rng.choice(F, 4, replace=False)] = np.array(
+            [-(2**31), -1, 0, 2**31 - 1], np.int32)
+    return torch.from_numpy(x).to(dev)
 
 
 def _bitonic_blocks(torch, rng, nblocks, cb, dev):

@@ -14,27 +14,43 @@
 // order, c + (c * lo) / s (ppm: s = 1e6, pct: s = 100) or c + lo (da),
 // with c = peak * z, each op rounded on its own (__fmul_rn, __fdiv_rn,
 // __fadd_rn; the build also passes -fmad=false). The compares are the
-// direct form: +inf peak pads give NaN (ppm, pct) or +inf (da) bounds and
-// -inf ladder slots fail f >= lo, so both contribute 0 exactly as in the
-// plain version. Planes z >= maxz have +inf bounds in the plain version
-// and match no finite fragment; the kernel skips them, which gives the
-// same counts. Candidates outside [i0, i1) are skipped likewise.
+// direct form, for every peak in any order: +inf peak pads give NaN
+// (ppm, pct) or +inf (da) bounds and -inf ladder slots fail f >= lo, so
+// both contribute 0 exactly as in the plain version. Planes z >= maxz
+// have +inf bounds in the plain version and match no finite fragment;
+// the kernel skips them, which gives the same counts. Candidates outside
+// [i0, i1) are skipped likewise. The peak axis is padded to a multiple
+// of 4 with NaN bounds, which no fragment matches.
 //
 // What bounds it on an H100. The work is the compare count,
 // sum over rows of (live candidates) * S * Lc * Pk * (live planes) * 2,
-// each an f32 compare plus an integer add, against the card's f32 issue
-// rate (one instruction per lane per clock: 132 SMs x 128 lanes x ~1.98 GHz
-// = 33.5 T/s, half the data sheet's 67 TFLOP/s, which counts a fused
+// each an f32 compare, against the card's f32 issue rate (one
+// instruction per lane per clock: 132 SMs x 128 lanes x ~1.98 GHz =
+// 33.5 T/s, half the data sheet's 67 TFLOP/s, which counts a fused
 // multiply-add as two); and the bytes of the ladder windows,
 // R * W * S * Lc * 4, against the 3.35 TB/s of device memory. At the
 // narrow search's shapes the compares take a few times longer than the
-// bytes, so the compares bound it. The design keeps each row's Z x Pk bounds in shared
-// memory, computed once per row, so every compare reads a broadcast
-// shared-memory word; the ladder rows of a tile of candidates (one per
-// warp) are staged in shared memory with coalesced loads, and the warp's
-// lanes walk that candidate's S x Lc fragment slots. A warp reduction
-// gives the candidate's count, a block reduction the row's sums.
-// One CTA per row: a batch holds thousands of rows, enough for 132 SMs.
+// bytes, so the compares bound it.
+//
+// Design. One CTA of 256 threads per row (a batch holds thousands of
+// rows, enough for 132 SMs). The row's Z x Pk bounds are computed once
+// into shared memory as float4 quads of peaks. The row's live fragments
+// -- (candidate, series, slot) flattened over the live candidates only,
+// so no lane idles at any S * Lc -- are cut into tiles of 256 x 8; the
+// tiles are double-buffered in shared memory with cp.async, so the next
+// tile's loads are in flight during the current tile's compares. Each
+// thread holds 8 consecutive fragments of the tile in registers, and per
+// quad of peaks reads the quad's low and high bounds as two 128-bit
+// broadcast loads, which feed 8 x 4 x 2 compares. Each compare is one
+// set instruction giving 1.0f or 0.0f (FSET.BF, on the ALU pipe) and one
+// f32 add into the fragment's count (FADD, on the FMA pipe, which has
+// twice the ALU pipe's lanes); the counts stay exact integers in f32 (at
+// most Z x Pk a fragment, far below 2^24). The integer form (0 / -1
+// masks and one three-input add) compiles to a compare, a select and an
+// add, five ALU instructions a pair, and ran at half the rate on the
+// card. A thread's fragments span at most a few candidates: it sums
+// each run and adds it to the candidate's count in shared memory (one
+// atomic a run). The row's sums are warp reductions (__reduce_add_sync).
 
 #include <cuda_runtime.h>
 
@@ -42,6 +58,9 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kFR = 8;                    // fragments a thread holds
+constexpr int kTile = kThreads * kFR;     // fragments a tile
+constexpr unsigned kFull = 0xffffffffu;
 
 enum TolKind { kPpm = 0, kPct = 1, kDa = 2 };
 
@@ -51,6 +70,49 @@ __device__ __forceinline__ float bound(int kind, float c, float t) {
     return __fadd_rn(c, __fdiv_rn(__fmul_rn(c, t), s));
 }
 
+// cnt + [x >= lo] - [x > hi]: set.*.f32.f32 gives 1.0f for true and
+// 0.0f for false (and for NaN operands); the adds are exact on integers
+// below 2^24
+__device__ __forceinline__ float match(float cnt, float x, float lo,
+                                       float hi) {
+    float ge, gt;
+    asm("set.ge.f32.f32 %0, %1, %2;" : "=f"(ge) : "f"(x), "f"(lo));
+    asm("set.gt.f32.f32 %0, %1, %2;" : "=f"(gt) : "f"(x), "f"(hi));
+    return __fsub_rn(__fadd_rn(cnt, ge), gt);
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+                 :: "r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Issue the copies of tile t of the row's live fragments into `buf`.
+// Fragment j is slot j % Lc of (candidate, series) row j / Lc, counted
+// from the first live candidate's first series: its ladder row is
+// `lad0 + (j / Lc) * L`.
+__device__ __forceinline__ void stage_tile(float* buf, const float* lad0,
+                                           int t, int nfrag, int Lc,
+                                           int L) {
+    for (int e = threadIdx.x; e < kTile; e += kThreads) {
+        const int j = t * kTile + e;
+        if (j < nfrag) {
+            const int cs = j / Lc;
+            cp_async4(buf + e, lad0 + (size_t)cs * L + (j - cs * Lc));
+        }
+    }
+    cp_async_commit();
+}
+
 __global__ void __launch_bounds__(kThreads)
 stage1_counts_kernel(const float* __restrict__ lad,    // [P_pad, S, L]
                      const float* __restrict__ peaks,  // [B, Pk] masses
@@ -58,10 +120,12 @@ stage1_counts_kernel(const float* __restrict__ lad,    // [P_pad, S, L]
                      int* __restrict__ out,            // [R, W + 2]
                      int R, int P_pad, int S, int L, int Lc, int B, int Pk,
                      int W, int Z, int kind, float tlo, float thi) {
-    extern __shared__ float smem[];
-    float* lo_s = smem;                 // [Z, Pk]
-    float* hi_s = lo_s + Z * Pk;        // [Z, Pk]
-    float* f_s = hi_s + Z * Pk;         // [kWarps, S * Lc]
+    const int Pk4 = (Pk + 3) >> 2;
+    extern __shared__ float4 smem4[];
+    float4* lo4 = smem4;                               // [Z, Pk4]
+    float4* hi4 = lo4 + Z * Pk4;                       // [Z, Pk4]
+    float* buf = (float*)(hi4 + Z * Pk4);              // [2, kTile]
+    int* cand = (int*)(buf + 2 * kTile);               // [W]
     __shared__ int red_m[kWarps];
     __shared__ int red_n[kWarps];
 
@@ -74,73 +138,127 @@ stage1_counts_kernel(const float* __restrict__ lad,    // [P_pad, S, L]
     const int i1 = ints[3 * R + row];
     const int maxz = ints[4 * R + row];
     const int zact = max(0, min(Z, maxz - 1));  // planes z = 1 .. zact
+    // live candidates: window positions [c_lo, c_lo + live)
+    const int c_lo = max(i0 - p0, 0);
+    const int live = max(min(i1 - p0, W) - c_lo, 0);
+    const int SLc = S * Lc;
+    const int nfrag = zact > 0 ? live * SLc : 0;
+    const int ntiles = (nfrag + kTile - 1) / kTile;
+    const float* lad0 = lad + (size_t)(p0 + c_lo) * S * L;
+
+    if (ntiles > 0) stage_tile(buf, lad0, 0, nfrag, Lc, L);
 
     const float* pk = peaks + (size_t)spec * Pk;
-    for (int j = threadIdx.x; j < zact * Pk; j += kThreads) {
-        const int zi = j / Pk;
-        const float c = __fmul_rn(pk[j - zi * Pk], (float)(zi + 1));
-        lo_s[j] = bound(kind, c, tlo);
-        hi_s[j] = bound(kind, c, thi);
-    }
-
-    const int SLc = S * Lc;
-    const int warp = threadIdx.x >> 5;
-    const int lane = threadIdx.x & 31;
-    int m_acc = 0;
-    int n_acc = 0;
-    int* orow = out + (size_t)row * (W + 2);
-    for (int t0 = 0; t0 < W; t0 += kWarps) {
-        const int nt = min(kWarps, W - t0);
-        // Stage the tile's ladder rows [nt, S, Lc]: one candidate's [S, L]
-        // row is contiguous, so consecutive threads read consecutive words.
-        __syncthreads();
-        for (int j = threadIdx.x; j < nt * SLc; j += kThreads) {
-            const int c = j / SLc;
-            const int r = j - c * SLc;
-            const int s = r / Lc;
-            const int l = r - s * Lc;
-            f_s[j] = lad[((size_t)(p0 + t0 + c) * S + s) * L + l];
+    float* lo_f = (float*)lo4;
+    float* hi_f = (float*)hi4;
+    const float qnan = __int_as_float(0x7fc00000);
+    for (int j = threadIdx.x; j < zact * Pk4 * 4; j += kThreads) {
+        const int zi = j / (Pk4 * 4);
+        const int k = j - zi * Pk4 * 4;
+        float lo = qnan;
+        float hi = qnan;
+        if (k < Pk) {
+            const float c = __fmul_rn(pk[k], (float)(zi + 1));
+            lo = bound(kind, c, tlo);
+            hi = bound(kind, c, thi);
         }
-        __syncthreads();
-        const int w = t0 + warp;
-        if (w < W) {
-            const int g = p0 + w;
-            int cnt = 0;
-            if (g >= i0 && g < i1) {  // warp-uniform
-                const float* f = f_s + warp * SLc;
-                for (int j = lane; j < SLc; j += 32) {
-                    const float x = f[j];
-                    for (int zi = 0; zi < zact; ++zi) {
-                        const float* lo = lo_s + zi * Pk;
-                        const float* hi = hi_s + zi * Pk;
-                        for (int k = 0; k < Pk; ++k) {
-                            cnt += (int)(x >= lo[k]) - (int)(x > hi[k]);
-                        }
+        lo_f[j] = lo;
+        hi_f[j] = hi;
+    }
+    for (int w = threadIdx.x; w < W; w += kThreads) cand[w] = 0;
+
+    for (int t = 0; t < ntiles; ++t) {
+        if (t + 1 < ntiles) {
+            stage_tile(buf + ((t + 1) & 1) * kTile, lad0, t + 1, nfrag, Lc, L);
+            cp_async_wait<1>();
+        } else {
+            cp_async_wait<0>();
+        }
+        __syncthreads();  // tile t (and the bounds) visible to every thread
+        const int j0 = t * kTile + threadIdx.x * kFR;
+        if (j0 < nfrag) {
+            const float4* tb = reinterpret_cast<const float4*>(
+                buf + (t & 1) * kTile + threadIdx.x * kFR);
+            float x[kFR];
+            float cnt[kFR];
+#pragma unroll
+            for (int i = 0; i < kFR; i += 4) {
+                const float4 v = tb[i / 4];
+                x[i] = v.x;
+                x[i + 1] = v.y;
+                x[i + 2] = v.z;
+                x[i + 3] = v.w;
+            }
+#pragma unroll
+            for (int i = 0; i < kFR; ++i) {
+                // past the row's last fragment: a slot that matches nothing
+                if (j0 + i >= nfrag) x[i] = -__int_as_float(0x7f800000);
+                cnt[i] = 0.0f;
+            }
+            for (int zi = 0; zi < zact; ++zi) {
+                const float4* lz = lo4 + zi * Pk4;
+                const float4* hz = hi4 + zi * Pk4;
+                for (int q = 0; q < Pk4; ++q) {
+                    const float4 a = lz[q];
+                    const float4 b = hz[q];
+#pragma unroll
+                    for (int i = 0; i < kFR; ++i) {
+                        float c = match(cnt[i], x[i], a.x, b.x);
+                        c = match(c, x[i], a.y, b.y);
+                        c = match(c, x[i], a.z, b.z);
+                        cnt[i] = match(c, x[i], a.w, b.w);
                     }
                 }
-                cnt = (int)__reduce_add_sync(0xffffffffu, (unsigned)cnt);
             }
-            if (lane == 0) {
-                orow[w] = cnt;
-                m_acc += cnt;
-                n_acc += cnt > 0;
+            // runs of one candidate: fragments [c SLc, (c + 1) SLc)
+            int c = j0 / SLc;
+            int next = (c + 1) * SLc;
+            int run = 0;
+#pragma unroll
+            for (int i = 0; i < kFR; ++i) {
+                if (j0 + i < nfrag) {
+                    if (j0 + i >= next) {
+                        if (run != 0) atomicAdd(&cand[c_lo + c], run);
+                        run = 0;
+                        ++c;
+                        next += SLc;
+                    }
+                    run += (int)cnt[i];
+                }
             }
+            if (run != 0) atomicAdd(&cand[c_lo + c], run);
         }
+        __syncthreads();  // buffer t & 1 free for tile t + 2
     }
+    __syncthreads();
+
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    int* orow = out + (size_t)row * (W + 2);
+    int m = 0;
+    int nz = 0;
+    for (int w = threadIdx.x; w < W; w += kThreads) {
+        const int v = cand[w];
+        orow[w] = v;
+        m += v;
+        nz += v > 0;
+    }
+    m = __reduce_add_sync(kFull, m);
+    nz = __reduce_add_sync(kFull, nz);
     if (lane == 0) {
-        red_m[warp] = m_acc;
-        red_n[warp] = n_acc;
+        red_m[warp] = m;
+        red_n[warp] = nz;
     }
     __syncthreads();
     if (threadIdx.x == 0) {
-        int m = 0;
-        int n = 0;
+        int ms = 0;
+        int ns = 0;
         for (int i = 0; i < kWarps; ++i) {
-            m += red_m[i];
-            n += red_n[i];
+            ms += red_m[i];
+            ns += red_n[i];
         }
-        orow[W] = m;
-        orow[W + 1] = n;
+        orow[W] = ms;
+        orow[W + 1] = ns;
     }
 }
 
@@ -149,8 +267,9 @@ stage1_counts_kernel(const float* __restrict__ lad,    // [P_pad, S, L]
 extern "C" {
 
 // Dynamic shared memory the kernel needs for these shapes, in bytes.
-long long stage1_counts_smem_bytes(int S, int Lc, int Pk, int Z) {
-    return 4LL * (2LL * Z * Pk + (long long)kWarps * S * Lc);
+long long stage1_counts_smem_bytes(int W, int Pk, int Z) {
+    const long long Pk4 = (Pk + 3) / 4;
+    return 32LL * Z * Pk4 + 8LL * kTile + 4LL * W;
 }
 
 // Launches the kernel on `stream`; returns cudaGetLastError() after the
@@ -160,7 +279,7 @@ int stage1_counts(const void* lad, const void* peaks, const void* ints,
                   int Pk, int W, int Z, int kind, float tlo, float thi,
                   void* stream) {
     if (R <= 0) return 0;
-    const long long smem = stage1_counts_smem_bytes(S, Lc, Pk, Z);
+    const long long smem = stage1_counts_smem_bytes(W, Pk, Z);
     if (smem > 48 * 1024) {
         cudaError_t e = cudaFuncSetAttribute(
             stage1_counts_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -1,21 +1,25 @@
-"""Bitonic sort of i32 rows: the CUDA kernels' wrappers and their plain
+"""Row sort of i32 keys: the CUDA kernels' wrappers and their plain
 PyTorch versions.
 
 Counterpart of ``sage_tpu/ops/pallas_sort.py``, whose Pallas kernels
-``_sort_kernel`` and ``_finish_kernel`` this replaces
-(``csrc/bitonic_sort.cu``). The open search's count core sorts each
-(spectrum, band) row of packed (peptide, charge) keys with
-:func:`bitonic_sort_rows`.
+``_sort_kernel`` and ``_finish_kernel`` this replaces: the radix sort of
+``csrc/row_sort.cu`` and the bitonic merge of ``csrc/bitonic_merge.cu``.
+The open search's count core sorts each (spectrum, band) row of packed
+(peptide, charge) keys with :func:`bitonic_sort_rows` (the JAX package's
+name).
 
-A row of up to ``_BLOCK_MAX`` keys (padded to a power of two) is sorted
-in one pass, one CTA per row in shared memory. Longer rows take the
-hierarchical path: CB-key blocks sorted by the same kernel, then per
-merge level one flip pass and the cross-block strides >= CB as torch
-elementwise ops, and the merge kernel for the strides < CB. The plain
-versions run the same network with torch ops, so the CPU tests exercise
-the directions, the padding and the flip/cross logic that the kernels
-implement; on i32 keys every correct sort gives one output, so kernel,
-plain version and ``torch.sort`` agree bit for bit.
+A row of up to ``_BLOCK_MAX`` keys is sorted in one pass of the radix
+kernel (:func:`sort_blocks` with one F-key block a row), exactly its F
+keys, one CTA per row. Longer rows take the hierarchical path: the row
+padded to a power of two, its CB-key blocks sorted by the same kernel
+(which reads the padding without storing it), then per merge level one flip
+pass and the cross-block strides >= CB as torch elementwise ops, and the
+merge kernel for the strides < CB. The plain versions follow the
+kernels' algorithms with torch ops (LSD radix passes of 8-bit digits
+with a stable counting scatter; the merge network), so the CPU tests
+exercise the sign flip, the digit passes, the padding and the flip/cross
+logic; on i32 keys every correct sort gives one output, so kernels,
+plain versions and ``torch.sort`` agree bit for bit.
 
 A CUDA tensor goes to the kernels, a CPU tensor to the plain versions.
 ``launches`` counts each kernel's launches.
@@ -28,28 +32,33 @@ import ctypes
 import torch
 
 INT32_MAX = 2**31 - 1
-# One-pass limit, and the block size of the hierarchical path: a row of
-# 2^15 keys is 128 KiB of shared memory, under the 227 KB a block can use
-# (the TPU's VMEM budget stopped at 2^14).
+# One-pass limit, and the block size of the hierarchical path: the radix
+# kernel's exchange buffer for 2^15 keys is 128 KiB of shared memory,
+# under the 227 KB a block can use (the TPU's VMEM budget stopped at
+# 2^14).
 _BLOCK_MAX = 1 << 15
 # the longest row the open search sorts through these kernels
 MAX_F = 1 << 17
+# the radix kernel's digits: 4 passes of 8 bits over the flipped keys
+_DIGIT_BITS = 8
+_PASSES = 32 // _DIGIT_BITS
 
-launches = {"bitonic_sort": 0, "bitonic_merge": 0}
+launches = {"row_sort": 0, "bitonic_merge": 0}
 
 
 def _next_pow2(n: int) -> int:
     return 1 << max(int(n) - 1, 0).bit_length()
 
 
-def _bind():
+def _bind(name: str):
     from ._cuda_build import load
 
-    lib = load("bitonic_sort")
-    if lib.bitonic_sort_blocks.argtypes is None:
-        c_int, c_ptr = ctypes.c_int, ctypes.c_void_p
-        lib.bitonic_sort_blocks.argtypes = [c_ptr, c_ptr] + [c_int] * 6 + [c_ptr]
-        lib.bitonic_sort_blocks.restype = c_int
+    lib = load(name)
+    c_int, c_ptr = ctypes.c_int, ctypes.c_void_p
+    if name == "row_sort" and lib.row_sort.argtypes is None:
+        lib.row_sort.argtypes = [c_ptr, c_ptr] + [c_int] * 6 + [c_ptr]
+        lib.row_sort.restype = c_int
+    if name == "bitonic_merge" and lib.bitonic_merge_blocks.argtypes is None:
         lib.bitonic_merge_blocks.argtypes = [c_ptr, c_ptr, c_int, c_int, c_ptr]
         lib.bitonic_merge_blocks.restype = c_int
     return lib
@@ -60,8 +69,7 @@ def _check(x: torch.Tensor, name: str, cb: int):
         (x.device.type == "cuda", f"unsupported device {x.device}"),
         (x.dtype == torch.int32, "keys must be int32"),
         (x.dim() == 2 and x.is_contiguous(), "keys must be a contiguous [B, F]"),
-        (2 <= cb <= _BLOCK_MAX and cb & (cb - 1) == 0,
-         f"block {cb} must be a power of two in [2, {_BLOCK_MAX}]"),
+        (1 <= cb <= _BLOCK_MAX, f"block {cb} must be in [1, {_BLOCK_MAX}]"),
     )
     for ok, msg in checks:
         if not ok:
@@ -76,32 +84,34 @@ def _raise_if(rc: int, name: str):
 def sort_blocks(x: torch.Tensor, cb: int, Fout: int, pad: int):
     """Sort each ``cb``-key block of each row of i32 ``x`` [B, F]
     ascending, positions past F reading ``pad``; returns [B, Fout] (the
-    first Fout positions of the padded rows). One block per row when
-    ``cb`` covers the padded row."""
+    first Fout positions of the padded rows). ``cb = Fout = F`` sorts
+    each row in one pass."""
     if x.device.type == "cpu":
         return sort_blocks_plain(x, cb, Fout, pad)
-    _check(x, "bitonic_sort", max(cb, 2))
+    _check(x, "row_sort", cb)
     B, F = x.shape
     nblk = -(-max(F, Fout) // cb)
     out = torch.empty((B, Fout), dtype=torch.int32, device=x.device)
-    lib = _bind()
+    lib = _bind("row_sort")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.bitonic_sort_blocks(x.data_ptr(), out.data_ptr(), B, F, Fout,
-                                     cb, nblk, int(pad), stream)
-    _raise_if(rc, "bitonic_sort")
-    launches["bitonic_sort"] += 1
+        rc = lib.row_sort(x.data_ptr(), out.data_ptr(), B, F, Fout, cb, nblk,
+                          int(pad), stream)
+    _raise_if(rc, "row_sort")
+    launches["row_sort"] += 1
     return out
 
 
 def merge_blocks(x: torch.Tensor, cb: int):
     """Ascending bitonic merge of each contiguous ``cb``-key block of i32
-    ``x`` [B, Fp] (every block bitonic)."""
+    ``x`` [B, Fp] (every block bitonic, ``cb`` a power of two)."""
     if x.device.type == "cpu":
         return merge_blocks_plain(x, cb)
     _check(x, "bitonic_merge", cb)
+    if cb & (cb - 1):
+        raise ValueError(f"bitonic_merge: block {cb} must be a power of two")
     out = torch.empty_like(x)
-    lib = _bind()
+    lib = _bind("bitonic_merge")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.bitonic_merge_blocks(x.data_ptr(), out.data_ptr(),
@@ -111,25 +121,48 @@ def merge_blocks(x: torch.Tensor, cb: int):
     return out
 
 
-def _network(v: torch.Tensor, merge_only: bool) -> torch.Tensor:
-    """The kernels' compare-exchange network over the rows of ``v``
-    [N, n] (n a power of two): the full sort (stages of size 2, 4, .., n,
-    a block ascending when its index is even), or with ``merge_only`` the
-    last stage alone (every pair ascending)."""
+def sort_rows_plain(x: torch.Tensor) -> torch.Tensor:
+    """The radix kernel's algorithm over whole rows in torch ops, the
+    plain version of a one-pass :func:`sort_blocks`: the sign bit flipped
+    (i32 order becomes the order of [0, 2^32)), then LSD passes of 8-bit
+    digits, each a stable scatter by the digit. The kernel leaves
+    INT32_MAX out of its passes (it puts those keys last) and skips a
+    pass whose digit is constant over a block's other keys; here every
+    key takes part, and a pass is skipped when its digit is constant over
+    each row. The kernel ranks a digit's 256 values at once (warp
+    histograms and a scan); here each pass is eight stable counting
+    scatters by one bit, least significant first, which compose to the
+    same stable scatter by the digit: a key with bit 0 goes to the count
+    of 0 bits before it, a key with bit 1 after every 0 bit of its row."""
+    N, F = x.shape
+    v = x.to(torch.int64) + 2**31
+    pos = torch.arange(F, device=x.device)
+    for p in range(_PASSES):
+        shift = _DIGIT_BITS * p
+        d = (v >> shift) & ((1 << _DIGIT_BITS) - 1)
+        if F == 0 or bool((d.amin(1) >= d.amax(1)).all()):
+            continue
+        for b in range(shift, shift + _DIGIT_BITS):
+            bit = (v >> b) & 1
+            ones = bit.cumsum(1)
+            zeros = F - ones[:, -1:]
+            dst = torch.where(bit == 1, zeros + ones - 1, pos - ones)
+            v = torch.empty_like(v).scatter_(1, dst, v)
+    return (v - 2**31).to(torch.int32)
+
+
+def _merge_network(v: torch.Tensor) -> torch.Tensor:
+    """The merge kernel's network over the rows of ``v`` [N, n] (n a
+    power of two, each row bitonic): strides n/2 .. 1, every pair
+    ascending."""
     N, n = v.shape
-    k = n.bit_length() - 1
-    for s in ([k] if merge_only else range(1, k + 1)):
-        size = 1 << s
-        asc = (torch.arange(n // size, device=v.device) % 2 == 0).view(
-            1, -1, 1, 1)
-        for j in range(s - 1, -1, -1):
-            d = 1 << j
-            w = v.view(N, n // size, size // (2 * d), 2, d)
-            lo = torch.minimum(w[..., 0, :], w[..., 1, :])
-            hi = torch.maximum(w[..., 0, :], w[..., 1, :])
-            v = torch.stack(
-                [torch.where(asc, lo, hi), torch.where(asc, hi, lo)], dim=3
-            ).reshape(N, n)
+    d = n // 2
+    while d >= 1:
+        w = v.view(N, n // (2 * d), 2, d)
+        v = torch.stack([torch.minimum(w[:, :, 0], w[:, :, 1]),
+                         torch.maximum(w[:, :, 0], w[:, :, 1])],
+                        dim=2).reshape(N, n)
+        d //= 2
     return v
 
 
@@ -140,13 +173,13 @@ def sort_blocks_plain(x, cb: int, Fout: int, pad: int):
     xp = torch.full((B, nblk * cb), int(pad), dtype=torch.int32,
                     device=x.device)
     xp[:, :F] = x
-    return _network(xp.view(B * nblk, cb), False).view(B, nblk * cb)[
+    return sort_rows_plain(xp.view(B * nblk, cb)).view(B, nblk * cb)[
         :, :Fout].contiguous()
 
 
 def merge_blocks_plain(x, cb: int):
     """The plain PyTorch version of :func:`merge_blocks`."""
-    return _network(x.reshape(-1, cb), True).view(x.shape)
+    return _merge_network(x.reshape(-1, cb)).view(x.shape)
 
 
 def _hier_sort(x, F: int, Fp: int, cb: int, pad: int):
@@ -180,12 +213,12 @@ def _hier_sort(x, F: int, Fp: int, cb: int, pad: int):
 
 def bitonic_sort_rows(x: torch.Tensor, pad_value: int = INT32_MAX,
                       block=None) -> torch.Tensor:
-    """Sort each row of i32 ``x`` [B, F] ascending. Rows are padded to a
-    power of two with ``pad_value`` (which must be >= every real key, so
-    the padding lands past F) inside the kernels; the result is [B, F].
-    ``block`` forces the hierarchical path's block size (a testing hook,
-    as in the JAX package); by default a row of up to ``_BLOCK_MAX`` keys
-    is sorted in one pass."""
+    """Sort each row of i32 ``x`` [B, F] ascending; the result is [B, F].
+    A row of up to ``_BLOCK_MAX`` keys is sorted in one pass; a longer
+    row takes the hierarchical path, padded to a power of two with
+    ``pad_value`` (which must be >= every real key, so the padding lands
+    past F). ``block`` forces the hierarchical path's block size (a
+    testing hook, as in the JAX package)."""
     B, F = x.shape
     if B == 0 or F == 0:
         return x.clone()
@@ -193,7 +226,7 @@ def bitonic_sort_rows(x: torch.Tensor, pad_value: int = INT32_MAX,
     Fp = _next_pow2(F)
     cb = min(block or _BLOCK_MAX, _BLOCK_MAX)
     if Fp <= cb:
-        return sort_blocks(x, Fp, F, pad_value)
+        return sort_blocks(x, F, F, pad_value)
     return _hier_sort(x, F, Fp, cb, pad_value)
 
 

@@ -37,7 +37,7 @@ def _bind():
             [c_ptr] * 4 + [c_int] * 10 + [ctypes.c_float] * 2 + [c_ptr]
         )
         fn.restype = c_int
-        lib.stage1_counts_smem_bytes.argtypes = [c_int] * 4
+        lib.stage1_counts_smem_bytes.argtypes = [c_int] * 3
         lib.stage1_counts_smem_bytes.restype = ctypes.c_longlong
     return lib
 
@@ -77,11 +77,11 @@ def stage1_counts(lad_index, peaks, ints, *, W: int, Lc: int, Z: int, tol):
         if not ok:
             raise ValueError(f"stage1_counts: {msg}")
     lib = _bind()
-    smem = int(lib.stage1_counts_smem_bytes(S, Lc, Pk, Z))
+    smem = int(lib.stage1_counts_smem_bytes(W, Pk, Z))
     if smem > 227 * 1024:
         raise ValueError(
-            f"stage1_counts: {smem} B of shared memory (S={S}, Lc={Lc}, "
-            f"Pk={Pk}, Z={Z}) exceeds the 227 KB a block can use"
+            f"stage1_counts: {smem} B of shared memory (W={W}, Pk={Pk}, "
+            f"Z={Z}) exceeds the 227 KB a block can use"
         )
     out = torch.empty((R, W + 2), dtype=torch.int32, device=lad_index.device)
     with torch.cuda.device(lad_index.device):

@@ -1,5 +1,5 @@
-"""The port on a CUDA device: the stage-1 and bitonic-sort kernels against
-their plain versions on the card, and the whole narrow and open paths on
+"""The port on a CUDA device: the stage-1, row-sort and merge kernels
+against their plain versions on the card, and the whole narrow and open paths on
 the card against the CPU.
 Every test here needs a card; where there is none they skip.
 
@@ -79,6 +79,36 @@ def test_stage1_kernel_matches_plain(cuda, small, W, Z, frag):
         assert (want[:, :W] > 0).any()
 
 
+@pytest.mark.parametrize("frag", [("ppm", -10.0, 10.0), ("pct", -0.002, 0.002),
+                                  ("da", -0.02, 0.02)])
+def test_stage1_kernel_ragged_tiles(cuda, small, frag):
+    """The kernel's tiling at its ragged edges: S * Lc off multiples of
+    32, Pk off multiples of 4, W and the live fragments off the
+    256 x 8 tile, Z = 3, empty windows and rows with no live plane."""
+    db, spectra = small
+    s = Scorer(db, _params(frag), device=cuda)
+    masses, _intens, Pk = s._pad_peaks(spectra[:40])
+    rng = np.random.default_rng(3)
+    P_pad, L = s.tables.P_pad, s.tables.L
+    for W, Lc, pk in ((33, 7, 37), (257, 11, Pk - 1), (100, L, 5),
+                      (1, 1, 1), (300, 13, Pk)):
+        peaks = torch.from_numpy(np.ascontiguousarray(masses[:, :pk])).to(cuda)
+        R = 97
+        p0 = rng.integers(0, len(db) - W, R)
+        i0 = p0 + rng.integers(-2, W // 4 + 2, R)
+        i1 = i0 + rng.integers(-1, W + 2, R)  # some windows empty
+        ints = np.stack([rng.integers(0, 40, R), np.minimum(p0, P_pad - W),
+                         i0, i1, rng.choice([1, 2, 3, 4], R)]).astype(np.int32)
+        ints_d = torch.from_numpy(ints).to(cuda)
+        kw = dict(W=W, Lc=min(Lc, L), Z=3, tol=frag)
+        got = pallas_stage1.stage1_counts(s.tables.lad_index, peaks, ints_d,
+                                          **kw)
+        want = pallas_stage1.stage1_counts_plain(s.tables.lad_index, peaks,
+                                                 ints_d, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (W, Lc, pk, frag)
+
+
 def test_narrow_path_card_matches_cpu(cuda, small):
     db, spectra = small
     params = _params(("ppm", -10.0, 10.0))
@@ -107,13 +137,66 @@ def test_sort_kernels_match_plain(cuda, B, F, block):
     before = dict(pallas_sort.launches)
     got = pallas_sort.bitonic_sort_rows(xd, block=block)
     torch.cuda.synchronize()
-    assert pallas_sort.launches["bitonic_sort"] == before["bitonic_sort"] + 1
+    assert pallas_sort.launches["row_sort"] == before["row_sort"] + 1
     hier = (1 << max(F - 1, 0).bit_length()) > (block or pallas_sort._BLOCK_MAX)
     assert (pallas_sort.launches["bitonic_merge"]
             > before["bitonic_merge"]) == hier
     want = pallas_sort.bitonic_sort_rows(torch.from_numpy(x), block=block)
     assert torch.equal(got.cpu(), want)
     assert torch.equal(got, torch.sort(xd, dim=1).values)
+
+
+def _radix_keys(kind, B, F, rng):
+    """The key kinds of tests/test_torch_sort.py's radix cases."""
+    wide = rng.integers(-(2**31), 2**31, size=(B, F), dtype=np.int64)
+    if kind == "int32_range":
+        x = wide.astype(np.int32)
+        marks = np.array([-(2**31), -1, 0, 2**31 - 1], np.int32)
+        for r in range(B):
+            at = rng.choice(F, size=min(F, 4), replace=False)
+            x[r, at] = marks[: at.size]
+        return x
+    if kind == "equal":
+        return np.full((B, F), rng.integers(-(2**31), 2**31), np.int32)
+    if kind == "sorted":
+        return np.sort(wide.astype(np.int32), axis=1)
+    if kind == "reversed":
+        return np.sort(wide.astype(np.int32), axis=1)[:, ::-1].copy()
+    if kind == "ties":
+        # INT32_MAX ties 255 and the open key 2^25 - 1 on its low digits
+        x = np.ascontiguousarray(np.tile(np.array([2**31 - 1, 255, 0],
+                                                  np.int32),
+                                         (B, F // 3 + 1))[:, :F])
+        x[1::2, :F // 2] = 2**31 - 1
+        x[1::2, F // 2:] = 2**25 - rng.integers(1, 4,
+                                                size=(len(x[1::2]), F - F // 2))
+        return x
+    pep = rng.integers(40_000, 43_000, size=(B, F))
+    x = (((2**25 - pep) << 5) | rng.integers(1, 4, size=(B, F))).astype(
+        np.int32)
+    x[rng.random((B, F)) < 0.8] = 2**31 - 1
+    for r in range(B):
+        x[r, int(rng.integers(0, F + 1)):] = 2**31 - 1
+    return x
+
+
+@pytest.mark.parametrize("kind", ["int32_range", "equal", "sorted",
+                                  "reversed", "open", "ties"])
+def test_row_sort_kernel_key_kinds(cuda, kind):
+    """The radix kernel on every key kind, at widths around its digit,
+    warp and thread-count edges and its keys-per-thread steps, up to
+    2^15 keys in one pass and 2^17 hierarchically: bit-equal to its
+    plain version and to torch.sort."""
+    rng = np.random.default_rng(len(kind))
+    for B, F in ((5, 1), (4, 255), (4, 257), (3, 1023), (3, 1025),
+                 (3, 2049), (3, 8193), (2, 20480), (2, 32767), (2, 32768),
+                 (2, 131072)):
+        x = torch.from_numpy(_radix_keys(kind, B, F, rng)).to(cuda)
+        got = pallas_sort.bitonic_sort_rows(x)
+        torch.cuda.synchronize()
+        assert torch.equal(got, torch.sort(x, dim=1).values), (kind, F)
+        if F <= pallas_sort._BLOCK_MAX:
+            assert torch.equal(got, pallas_sort.sort_rows_plain(x)), (kind, F)
 
 
 def test_open_path_card_matches_cpu(cuda, small, monkeypatch):
@@ -125,11 +208,11 @@ def test_open_path_card_matches_cpu(cuda, small, monkeypatch):
         precursor_tol=Tolerance("da", -500.0, 100.0),
         fragment_tol=Tolerance("ppm", -10.0, 10.0), report_psms=2,
     )
-    before = pallas_sort.launches["bitonic_sort"]
+    before = pallas_sort.launches["row_sort"]
     gpu = Scorer(db, params, device=cuda)
     t_gpu = list(gpu.score_stream([spectra[:96], spectra[96:192]]))
     assert gpu.last_plan.get("open")
-    assert pallas_sort.launches["bitonic_sort"] > before
+    assert pallas_sort.launches["row_sort"] > before
     cpu = Scorer(db, params, device="cpu")
     t_cpu = list(cpu.score_stream([spectra[:96], spectra[96:192]]))
     for a, b in zip(t_gpu, t_cpu):

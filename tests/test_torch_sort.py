@@ -1,8 +1,9 @@
-"""The port's bitonic row sort (the plain PyTorch versions of the CUDA
-kernels in ``csrc/bitonic_sort.cu``) against ``np.sort`` and against
-sage_tpu's Pallas kernels in interpret mode, on the CPU: one-pass rows
-and the hierarchical path with the block size forced, non-power-of-two
-widths, ragged batches, sentinel tails, duplicates and negatives. On
+"""The port's row sort (the plain PyTorch versions of the CUDA kernels in
+``csrc/row_sort.cu`` and ``csrc/bitonic_merge.cu``) against ``np.sort``
+and against sage_tpu's Pallas kernels in interpret mode, on the CPU:
+one-pass rows and the hierarchical path with the block size forced,
+non-power-of-two widths, ragged batches, sentinel tails, duplicates and
+negatives, the full int32 range, and the open search's packed keys. On
 i32 keys every correct sort gives one output, so all must be equal."""
 
 import jax  # noqa: F401  (conftest keeps JAX on the CPU)
@@ -87,3 +88,91 @@ def test_use_pallas_sort_gate():
     assert pallas_sort.use_pallas_sort(pallas_sort.MAX_F, (1 << 25) - 1)
     assert not pallas_sort.use_pallas_sort(pallas_sort.MAX_F + 1, 10)
     assert not pallas_sort.use_pallas_sort(128, 1 << 25)
+
+
+INT32_MIN = -(2**31)
+
+
+def _radix_keys(kind, B, F, seed):
+    """Rows for the radix sort's digit passes: the full int32 range (its
+    landmarks INT32_MIN, -1, 0, INT32_MAX in every row), all-equal rows
+    (every pass skipped), sorted and reverse-sorted rows, the open
+    search's packed keys ((2^25 - pep) << 5) | z of one band with
+    INT32_MAX invalid entries among them and as a tail, and rows where
+    INT32_MAX ties other keys on their low digits."""
+    rng = np.random.default_rng(seed)
+    wide = rng.integers(INT32_MIN, 2**31, size=(B, F), dtype=np.int64)
+    if kind == "int32_range":
+        x = wide.astype(np.int32)
+        marks = np.array([INT32_MIN, -1, 0, SENT], np.int32)
+        for r in range(B):
+            at = rng.choice(F, size=min(F, 4), replace=False)
+            x[r, at] = marks[: at.size]
+        return x
+    if kind == "equal":
+        return np.full((B, F), rng.integers(INT32_MIN, 2**31), np.int32)
+    if kind == "sorted":
+        return np.sort(wide.astype(np.int32), axis=1)
+    if kind == "reversed":
+        return np.sort(wide.astype(np.int32), axis=1)[:, ::-1].copy()
+    if kind == "ties":
+        return _tie_keys(B, F, rng)
+    assert kind == "open"
+    pep = rng.integers(40_000, 40_000 + 3_000, size=(B, F))
+    z = rng.integers(1, 4, size=(B, F))
+    x = (((2**25 - pep) << 5) | z).astype(np.int32)
+    x[rng.random((B, F)) < 0.8] = SENT  # invalid entries, as in the open rows
+    for r in range(B):
+        x[r, int(rng.integers(0, F + 1)):] = SENT
+    return x
+
+
+def _tie_keys(B, F, rng):
+    """Rows where INT32_MAX shares its low digits with other keys, so a
+    pass skipped over the others must still put it last: odd rows repeat
+    [INT32_MAX, 255, 0]; even rows hold INT32_MAX entries, then open keys
+    2^25 - pep of peptides 1-3 at Z = 1 (2^25 - 1 ends in three 0xFF
+    digits)."""
+    x = np.tile(np.array([SENT, 255, 0], np.int32), (B, F // 3 + 1))[:, :F]
+    x = np.ascontiguousarray(x)
+    h = F // 2
+    x[1::2, :h] = SENT
+    x[1::2, h:] = 2**25 - rng.integers(1, 4, size=(len(x[1::2]), F - h))
+    return x
+
+
+RADIX_KINDS = ["int32_range", "equal", "sorted", "reversed", "open", "ties"]
+# F = 1, and widths just off a digit (256 bins), a warp's keys and the
+# kernel's thread count (1024)
+RADIX_WIDTHS = [1, 255, 257, 1023, 1025]
+
+
+@pytest.mark.parametrize("F", RADIX_WIDTHS)
+@pytest.mark.parametrize("kind", RADIX_KINDS)
+def test_radix_plain_matches_npsort_and_sage_tpu(kind, F):
+    """The radix kernel's plain version (sign flip, 8-bit LSD passes,
+    stable counting scatter) is bit-equal to np.sort and to sage_tpu's
+    interpret-mode bitonic kernel; bitonic_sort_rows takes it for a
+    one-pass row."""
+    x = _radix_keys(kind, 3, F, RADIX_KINDS.index(kind) * 131 + F)
+    got = pallas_sort.sort_rows_plain(torch.from_numpy(x))
+    assert got.dtype == torch.int32 and got.shape == x.shape
+    np.testing.assert_array_equal(got.numpy(), np.sort(x, axis=1))
+    want = np.asarray(jax_sort(x, interpret=True))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        pallas_sort.bitonic_sort_rows(torch.from_numpy(x)).numpy(), want)
+
+
+@pytest.mark.parametrize("kind", RADIX_KINDS)
+def test_radix_blocks_with_virtual_pads(kind):
+    """sort_blocks over radix-sorted blocks: the hierarchical path's
+    2^k-key blocks with the pad key read past the row, and the
+    hierarchical sort built on them, equal np.sort for every key kind."""
+    x = _radix_keys(kind, 2, 3000, 7)
+    out = pallas_sort.sort_blocks(torch.from_numpy(x), 1024, 4096, SENT)
+    xp = np.concatenate([x, np.full((2, 1096), SENT, np.int32)], axis=1)
+    want = np.sort(xp.reshape(2, 4, 1024), axis=2).reshape(2, 4096)
+    np.testing.assert_array_equal(out.numpy(), want)
+    got = pallas_sort.bitonic_sort_rows(torch.from_numpy(x), block=1024)
+    np.testing.assert_array_equal(got.numpy(), np.sort(x, axis=1))

@@ -1,5 +1,6 @@
-"""Drive the PyTorch port's narrow and open searches on one CUDA card and
-check them.
+"""Drive the PyTorch port on one CUDA card and check it: the Runner and
+the CLI from FASTA and spectrum files to results.sage.tsv, and the narrow
+and open searches through the fused and the two-dispatch paths.
 
 Usage (from the repository root, on a machine with an NVIDIA H100):
 
@@ -13,9 +14,20 @@ seconds):
    csrc/row_sort.cu, csrc/bitonic_merge.cu) with nvcc, side by side,
    printing ptxas's registers / shared-memory / spill lines and the
    build time.
-3. Narrow main path at full width: bench.py's workload (synth_fasta(20000)
-   with C+57.0215 static and M+15.9949 variable mods, 2 batches of 8192
-   synthetic spectra, precursor +-20 ppm, fragment +-10 ppm) through
+11. Runner at full size (runs right after the build: its database is the
+   one every later phase searches): bench.py's database as a FASTA
+   (synth_fasta(20000), C+57.0215 static and M+15.9949 variable mods,
+   decoys) and an mzML of 16,384 of bench.py's synthetic spectra (2 x
+   the Runner's 8192-spectrum batch), written to a temporary directory;
+   ``Runner(build_search(config)).run()`` in this process on the card,
+   precursor +-20 ppm, fragment +-10 ppm, write_pin on. The stage-1
+   counter is set to 0 just before the run and must be > 0 after. Prints
+   the Runner's phase seconds, the search and whole-run spectra/s, the
+   PSMs / peptides / proteins at 1% FDR and peak device memory; checks
+   results.sage.tsv's header against the OutputWriter's columns.
+3. Narrow main path at full width: bench.py's workload (the same
+   database, 2 batches of 8192 synthetic spectra, precursor +-20 ppm,
+   fragment +-10 ppm) through
    ``Scorer(db, params).score_stream`` on the card, after one warm-up
    batch. The stage-1 kernel's launch counter is set to 0 just before and
    read just after; every batch must launch it. Then one batch's time is
@@ -57,21 +69,39 @@ seconds):
    blocks.
 9. Open card against CPU: 128 open spectra on the card and on the CPU;
    every FeatureTable column must be equal.
+12. CLI on the card: ``python -m sage_tpu_torch config.json -o dir`` as a
+    subprocess, on a 300-protein FASTA and a 512-spectrum MGF, must exit
+    0, and its results.sage.tsv and results.sage.pin must be byte-equal
+    to an in-process ``Runner(..., device="cpu")`` run on the same
+    inputs.
+13. Two-dispatch narrow at full width: phase 3's 2 x 8192 spectra through
+    ``score_stream`` with SAGE_TPU_FUSED=0; the stage-1 counter must be
+    > 0 and every FeatureTable column must equal phase 3's fused tables.
+    Prints the wall rate and one batch's host phases.
+14. Two-dispatch open: phase 6's 4 x 512 spectra with SAGE_TPU_FUSED=0;
+    the row-sort counter must be > 0 and every column must equal phase
+    6's tables.
 10. The ``kernels`` JSON line, the nvidia-smi line, and the final
     ``{"ok": true, ...}`` line. ``launches`` is each kernel's count on
-    its main path (phase 3 or 6); the merge kernel, which those runs
-    never launch, adds phase 7's count as ``forced_launches``.
+    its main path (phase 3 or 6), ``launches_by_path`` its count on each
+    path that runs it (phases 3, 11 and 13; 6 and 14); the merge kernel,
+    which those runs never launch, adds phase 7's count as
+    ``forced_launches``.
 
 A ``# record:`` line repeats the run's numbers as JSON.
 """
 
 from __future__ import annotations
 
+import base64
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
+import zlib
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -325,7 +355,8 @@ def build_kernels(_cuda_build):
 
 
 def narrow_phases(torch, tsearch, pallas_stage1, db, spectra, dev, times):
-    """Phases 3-5 (the narrow search)."""
+    """Phases 3-5 (the narrow search). Returns the record, the stage-1
+    kernel's entry and phase 3's (params, batches, tables)."""
     batch = 8192
     warm, b1, b2 = (spectra[i * batch:(i + 1) * batch] for i in range(3))
     params = tsearch.SearchParams(
@@ -534,11 +565,12 @@ def narrow_phases(torch, tsearch, pallas_stage1, db, spectra, dev, times):
         assert_tables_equal(t_gpu, t_cpu, "narrow card vs CPU")
         log(f"# narrow card vs CPU: {len(t_cpu)} PSMs of {len(sub)} spectra, "
             f"all {len(t_cpu.columns)} FeatureTable columns equal")
-    return out, kernel
+    return out, kernel, (params, [b1, b2], tables)
 
 
 def open_phases(torch, tsearch, topen, pallas_sort, db, spectra, dev, times):
-    """Phases 6-9 (the open search)."""
+    """Phases 6-9 (the open search). Returns the record, the sort
+    kernels' entries and phase 6's (params, batches, tables)."""
     params = tsearch.SearchParams(
         precursor_tol=tsearch.Tolerance("da", -500.0, 100.0),
         fragment_tol=tsearch.Tolerance("ppm", -10.0, 10.0),
@@ -776,7 +808,7 @@ def open_phases(torch, tsearch, topen, pallas_sort, db, spectra, dev, times):
         assert_tables_equal(t_gpu, t_cpu, "open card vs CPU")
         log(f"# open card vs CPU: {len(t_cpu)} PSMs of {len(sub)} spectra, "
             f"all {len(t_cpu.columns)} FeatureTable columns equal")
-    return out, kernels
+    return out, kernels, (params, batches, tables)
 
 
 def time_sorts(torch, pallas_sort, xs, what, reps=20):
@@ -861,17 +893,285 @@ def _bitonic_blocks(torch, rng, nblocks, cb, dev):
     return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
 
 
+def _enc(arr, dtype):
+    return base64.b64encode(
+        zlib.compress(np.ascontiguousarray(arr, dtype).tobytes())).decode()
+
+
+def write_mzml(path, spectra, proton):
+    """Processed spectra as an mzML file of MS2 scans: peaks at m/z =
+    neutral mass + proton (charge 1), the precursor m/z and charge, the
+    scan start time in minutes."""
+    with open(path, "w") as f:
+        f.write('<?xml version="1.0"?><mzML><run><spectrumList>')
+        for s in spectra:
+            prec = s.precursors[0]
+            mz = s.masses.astype(np.float64) + float(proton)
+            f.write(
+                f'<spectrum id="{s.id}">'
+                '<cvParam accession="MS:1000511" value="2"/>'
+                '<cvParam accession="MS:1000127" value=""/>'
+                '<cvParam accession="MS:1000285" '
+                f'value="{float(s.intensities.sum())}"/>'
+                "<scanList><scan>"
+                f'<cvParam accession="MS:1000016" value="{s.scan_start_time}"'
+                ' unitAccession="UO:0000031"/>'
+                "</scan></scanList><precursorList><precursor>"
+                "<selectedIonList><selectedIon>"
+                f'<cvParam accession="MS:1000744" value="{prec.mz!r}"/>'
+                f'<cvParam accession="MS:1000041" value="{prec.charge}"/>'
+                "</selectedIon></selectedIonList></precursor>"
+                "</precursorList><binaryDataArrayList>"
+                '<binaryDataArray><cvParam accession="MS:1000523" value=""/>'
+                '<cvParam accession="MS:1000574" value=""/>'
+                '<cvParam accession="MS:1000514" value=""/>'
+                f"<binary>{_enc(mz, np.float64)}</binary></binaryDataArray>"
+                '<binaryDataArray><cvParam accession="MS:1000521" value=""/>'
+                '<cvParam accession="MS:1000574" value=""/>'
+                '<cvParam accession="MS:1000515" value=""/>'
+                f"<binary>{_enc(s.intensities, np.float32)}</binary>"
+                "</binaryDataArray></binaryDataArrayList></spectrum>"
+            )
+        f.write("</spectrumList></run></mzML>")
+
+
+def write_mgf(path, spectra, proton):
+    """Processed spectra as an MGF file (peaks as in :func:`write_mzml`)."""
+    lines = []
+    for s in spectra:
+        prec = s.precursors[0]
+        lines += ["BEGIN IONS", f"TITLE={s.id}", f"PEPMASS={prec.mz!r}",
+                  f"CHARGE={prec.charge}+",
+                  f"RTINSECONDS={60.0 * s.scan_start_time!r}"]
+        lines += [f"{float(m) + float(proton)!r} {float(v)!r}"
+                  for m, v in zip(s.masses, s.intensities)]
+        lines.append("END IONS")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def search_config(fasta, paths, **extra):
+    """bench.py's database and tolerances as a search config."""
+    return {
+        "database": {"fasta": fasta, "static_mods": {"C": 57.0215},
+                     "variable_mods": {"M": [15.9949]},
+                     "generate_decoys": True},
+        "precursor_tol": {"ppm": [-20, 20]},
+        "fragment_tol": {"ppm": [-10, 10]},
+        "deisotope": False, "write_pin": True, "mzml_paths": list(paths),
+        **extra,
+    }
+
+
+def runner_phase(torch, pallas_stage1, tmp, times):
+    """Phase 11: the Runner on bench.py's database and 16,384 of its
+    spectra. Returns the record, the Runner's database and bench.py's
+    3 x 8192 synthetic spectra."""
+    from sage_tpu_torch.bench_baseline import synth_fasta, synth_spectra
+    from sage_tpu_torch.chem.mass import PROTON
+    from sage_tpu_torch.pipeline.input import build_search
+    from sage_tpu_torch.pipeline.output import OutputWriter
+    from sage_tpu_torch.pipeline.runner import SCORE_BATCH, Runner
+
+    n_spec = 2 * SCORE_BATCH
+    with Phase("11_runner", times):
+        fasta = os.path.join(tmp, "bench.fasta")
+        with open(fasta, "w") as f:
+            f.write(synth_fasta(PROTEINS))
+        mzml = os.path.join(tmp, "bench.mzML")
+        out_dir = os.path.join(tmp, "runner_out")
+        search = build_search(search_config(fasta, [mzml]),
+                              output_directory=out_dir)
+        t0 = time.perf_counter()
+        runner = Runner(search)
+        db = runner.database
+        log(f"# db: {PROTEINS} proteins, {len(db)} peptides, "
+            f"{db.num_fragments} fragments, built by the Runner in "
+            f"{time.perf_counter() - t0:.2f} s")
+        spectra = synth_spectra(db, 3 * 8192)
+        t0 = time.perf_counter()
+        write_mzml(mzml, spectra[8192:8192 + n_spec], PROTON)
+        log(f"# mzML: {n_spec} spectra, {os.path.getsize(mzml) / 2**20:.1f} "
+            f"MiB, written in {time.perf_counter() - t0:.2f} s")
+
+        torch.cuda.reset_peak_memory_stats()
+        pallas_stage1.launches = 0
+        t0 = time.perf_counter()
+        result = runner.run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = pallas_stage1.launches
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        ph = result["phases"]
+        log(f"# Runner phases (s): {ph}")
+        log(f"# Runner: {n_spec} spectra, run() {run_s:.2f} s = "
+            f"{n_spec / run_s:.1f} spectra/s whole run; search "
+            f"{ph['search_s']:.3f} s = {n_spec / ph['search_s']:.1f} "
+            f"spectra/s; stage1_counts launches {launches}; peak device "
+            f"memory {peak_gib:.2f} GiB")
+        log(f"# Runner at 1% FDR: {result['q_spectrum']} PSMs, "
+            f"{result['q_peptide']} peptides, {result['q_protein']} "
+            f"proteins, {result['q_protein_group']} protein groups; "
+            f"{len(result['features'])} PSMs reported")
+        assert launches > 0, "the Runner did not launch the stage-1 kernel"
+        with open(os.path.join(out_dir, "results.sage.tsv")) as f:
+            header = f.readline().rstrip("\n").split("\t")
+            n_rows = sum(1 for _ in f)
+        assert header == OutputWriter.FEATURE_HEADERS, header
+        assert n_rows == len(result["features"]) > 0.9 * n_spec, n_rows
+        # bench.py draws its spectra from targets and decoys alike, so
+        # about half the top PSMs are decoys and few pass 1% FDR; each
+        # spectrum carries its peptide's precursor mass
+        c = result["features"].columns
+        near = float((np.abs(c["delta_mass"]) <= 20.5).mean())
+        decoys = float((c["label"] == -1).mean())
+        assert near > 0.9, near
+        log(f"# results.sage.tsv: the {len(header)} OutputWriter columns, "
+            f"{n_rows} rows; {near:.3f} of the PSMs within 20 ppm of their "
+            f"precursor, decoy share {decoys:.3f}")
+    rec = dict(spectra=n_spec, run_s=run_s, phases=ph,
+               whole_run_spectra_per_s=n_spec / run_s,
+               search_spectra_per_s=n_spec / ph["search_s"],
+               stage1_launches=launches, peak_device_gib=peak_gib,
+               q_spectrum=result["q_spectrum"], q_peptide=result["q_peptide"],
+               q_protein=result["q_protein"],
+               q_protein_group=result["q_protein_group"],
+               psms_within_20ppm=near, decoy_share=decoys)
+    return rec, db, spectra
+
+
+def cli_phase(torch, tmp, times):
+    """Phase 12: ``python -m sage_tpu_torch`` on the card against the
+    Runner on the CPU."""
+    from sage_tpu_torch.bench_baseline import synth_fasta, synth_spectra
+    from sage_tpu_torch.chem.fasta import Fasta
+    from sage_tpu_torch.chem.mass import PROTON
+    from sage_tpu_torch.pipeline.input import build_search
+    from sage_tpu_torch.pipeline.runner import Runner
+
+    with Phase("12_cli", times):
+        text = synth_fasta(300, seed=3)
+        fasta = os.path.join(tmp, "cli.fasta")
+        with open(fasta, "w") as f:
+            f.write(text)
+        cfg = search_config(fasta, [os.path.join(tmp, "cli.mgf")])
+        dbp = build_search(cfg, output_directory=tmp).database
+        db = dbp.build(Fasta.parse(text, dbp.decoy_tag, dbp.generate_decoys))
+        write_mgf(cfg["mzml_paths"][0], synth_spectra(db, 512, seed=13),
+                  PROTON)
+        cfg_path = os.path.join(tmp, "cli.json")
+        with open(cfg_path, "w") as f:
+            json.dump(cfg, f)
+        root = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            [root] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                      if p])
+        out_card = os.path.join(tmp, "cli_card")
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "sage_tpu_torch", cfg_path, "-o", out_card],
+            cwd=root, env=env, capture_output=True, text=True, timeout=600,
+        )
+        cli_s = time.perf_counter() - t0
+        if r.returncode != 0:
+            log(r.stdout[-4000:])
+            log(r.stderr[-4000:])
+        assert r.returncode == 0, f"the CLI exited {r.returncode}"
+        out_cpu = os.path.join(tmp, "cli_cpu")
+        t0 = time.perf_counter()
+        Runner(build_search(json.loads(json.dumps(cfg)),
+                            output_directory=out_cpu), device="cpu").run()
+        cpu_s = time.perf_counter() - t0
+        n_rows = 0
+        for name in ("results.sage.tsv", "results.sage.pin"):
+            with open(os.path.join(out_card, name), "rb") as a, \
+                    open(os.path.join(out_cpu, name), "rb") as b:
+                got = a.read()
+                assert got == b.read(), f"{name}: card and CPU differ"
+            n_rows = max(n_rows, got.count(b"\n") - 1)
+        assert n_rows > 256, n_rows
+        log(f"# CLI on the card: exit 0 in {cli_s:.1f} s (its own process, "
+            f"kernel build included); results.sage.tsv and results.sage.pin "
+            f"byte-equal to the CPU Runner's ({n_rows} rows; CPU run "
+            f"{cpu_s:.1f} s)")
+    return dict(cli_s=cli_s, cpu_runner_s=cpu_s, rows=n_rows)
+
+
+def two_dispatch_phase(torch, tsearch, name, db, fused, kernel, counts,
+                       times, open_search=False):
+    """Phases 13 and 14: the batches of a fused main path, ``fused`` =
+    (params, batches, tables), again with SAGE_TPU_FUSED=0; ``counts`` =
+    (reset, read): ``read`` returns every launch counter the kernels line
+    reports, as a dict, and ``kernel``'s must read > 0. All counters are
+    read once, right after the stream and before the timed single batch.
+    Every column must equal the fused tables; prints the wall rate and
+    one batch's host phases. The open searcher's tables are built before
+    the timed run, as phase 6 builds them."""
+    params, batches, fused_tables = fused
+    reset, read = counts
+    sync = torch.cuda.synchronize
+    n = sum(len(b) for b in batches)
+    with Phase(name, times):
+        os.environ["SAGE_TPU_FUSED"] = "0"
+        try:
+            scorer = tsearch.Scorer(db, params)
+            if open_search:
+                scorer._open_searcher()
+            sync()
+            # number the PSMs as the fused run did
+            scorer._psm_counter = int(fused_tables[0].columns["psm_id"][0])
+            reset()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            tables = list(scorer.score_stream(batches))
+            sync()
+            wall_s = time.perf_counter() - t0
+            launches_all = dict(read())
+            launches = launches_all[kernel]
+            peak_gib = torch.cuda.max_memory_allocated() / 2**30
+            assert launches > 0, f"{name}: {kernel} not launched"
+            for i, (a, b) in enumerate(zip(tables, fused_tables)):
+                assert_tables_equal(a, b, f"{name} batch {i} vs fused")
+            # one batch's host phases, each synchronised
+            ph = {}
+
+            def timed(key, fn):
+                def call(*a, **k):
+                    t = time.perf_counter()
+                    out = fn(*a, **k)
+                    sync()
+                    ph[key] = ph.get(key, 0.0) + (time.perf_counter() - t) * 1e3
+                    return out
+                return call
+
+            for key in ("_prelim_dispatch", "_prelim_finalize",
+                        "_stage2_dispatch", "_stage2_finalize"):
+                setattr(scorer, key, timed(key.strip("_") + "_ms",
+                                           getattr(scorer, key)))
+            t0 = time.perf_counter()
+            scorer.score_table(batches[0])
+            sync()
+            ph["score_table_ms"] = (time.perf_counter() - t0) * 1e3
+        finally:
+            del os.environ["SAGE_TPU_FUSED"]
+        log(f"# {name}: {len(batches)} x {len(batches[0])} spectra in "
+            f"{wall_s:.3f} s wall = {n / wall_s:.1f} spectra/s; "
+            f"launches {launches_all}; peak device memory "
+            f"{peak_gib:.2f} GiB; all {len(fused_tables[0].columns)} "
+            f"FeatureTable columns equal the fused tables "
+            f"({sum(len(t) for t in tables)} PSMs)")
+        log(f"# {name} one batch (ms, synchronised): "
+            + ", ".join(f"{k} {v:.2f}" for k, v in ph.items()))
+    return dict(wall_s=wall_s, spectra_per_s=n / wall_s, launches=launches,
+                launches_all=launches_all, peak_device_gib=peak_gib,
+                batch_phases_ms=ph)
+
+
 def main():
     import torch
 
     # the package comes first: without it nothing below can run
-    from sage_tpu_torch.bench_baseline import synth_fasta, synth_spectra
-    from sage_tpu_torch.chem.fasta import Fasta
-    from sage_tpu_torch.chem.modification import (
-        validate_mods,
-        validate_var_mods,
-    )
-    from sage_tpu_torch.index.builder import DatabaseParams
     from sage_tpu_torch.ops import _cuda_build, pallas_sort, pallas_stage1
     from sage_tpu_torch.ops import open_search as topen
     from sage_tpu_torch.ops import search as tsearch
@@ -891,22 +1191,42 @@ def main():
     with Phase("2_build", times):
         build_s = build_kernels(_cuda_build)
 
-    with Phase("db", times):
-        dbp = DatabaseParams(
-            static_mods=validate_mods({"C": 57.0215}),
-            variable_mods=validate_var_mods({"M": [15.9949]}),
-        )
-        db = dbp.build(Fasta.parse(synth_fasta(PROTEINS), dbp.decoy_tag, True))
-        log(f"# db: {PROTEINS} proteins, {len(db)} peptides, "
-            f"{db.num_fragments} fragments")
-        spectra = synth_spectra(db, 3 * 8192)
+    with tempfile.TemporaryDirectory() as tmp:
+        runner_rec, db, spectra = runner_phase(torch, pallas_stage1, tmp,
+                                               times)
+        narrow, k_stage1, narrow_fused = narrow_phases(
+            torch, tsearch, pallas_stage1, db, spectra, dev, times)
+        open_rec, k_sort, open_fused = open_phases(
+            torch, tsearch, topen, pallas_sort, db, spectra, dev, times)
+        cli_rec = cli_phase(torch, tmp, times)
 
-    narrow, k_stage1 = narrow_phases(torch, tsearch, pallas_stage1, db,
-                                     spectra, dev, times)
-    open_rec, k_sort = open_phases(torch, tsearch, topen, pallas_sort, db,
-                                   spectra, dev, times)
+    def reset_stage1():
+        pallas_stage1.launches = 0
+
+    def reset_sorts():
+        for k in pallas_sort.launches:
+            pallas_sort.launches[k] = 0
+
+    td_narrow = two_dispatch_phase(
+        torch, tsearch, "13_two_dispatch_narrow", db, narrow_fused,
+        "stage1_counts",
+        (reset_stage1, lambda: {"stage1_counts": pallas_stage1.launches}),
+        times)
+    td_open = two_dispatch_phase(
+        torch, tsearch, "14_two_dispatch_open", db, open_fused, "row_sort",
+        (reset_sorts, lambda: pallas_sort.launches), times, open_search=True)
 
     # ---- 10. result lines
+    k_stage1["launches_by_path"] = {
+        "narrow_fused": k_stage1["launches"],
+        "runner": runner_rec["stage1_launches"],
+        "two_dispatch_narrow": td_narrow["launches"]}
+    k_sort[0]["launches_by_path"] = {
+        "open_fused": k_sort[0]["launches"],
+        "two_dispatch_open": td_open["launches_all"]["row_sort"]}
+    k_sort[1]["launches_by_path"] = {
+        "open_fused": k_sort[1]["launches"],
+        "two_dispatch_open": td_open["launches_all"]["bitonic_merge"]}
     kernels = {"kernels": []}
     for k in [k_stage1] + k_sort:
         src, replaces = KERNELS[k["name"]]
@@ -918,8 +1238,10 @@ def main():
     record = {
         "device": kind, "nvidia_smi": smi, "proteins": PROTEINS,
         "peptides": len(db), "fragments": int(db.num_fragments),
-        "kernel_build_s": build_s, "phase_s": times, "narrow": narrow,
-        "open": open_rec, **kernels,
+        "kernel_build_s": build_s, "phase_s": times, "runner": runner_rec,
+        "narrow": narrow, "open": open_rec, "cli": cli_rec,
+        "two_dispatch_narrow": td_narrow, "two_dispatch_open": td_open,
+        **kernels,
     }
     log("# record: " + json.dumps(record, default=str))
     print(json.dumps(kernels), flush=True)

@@ -6,10 +6,14 @@ mirror ``sage_tpu`` so each module's counterpart is easy to find. The
 package imports torch and numpy only; it never imports jax or
 ``sage_tpu``.
 
-Covered so far: database build and checkpoint load, spectrum
-processing, and the narrow fused search (``Scorer.score_table`` /
-``Scorer.score_stream``) down to the ``FeatureTable``. Regimes outside
-that path raise ``NotImplementedError``.
+Covered so far: the command line (``python -m sage_tpu_torch
+config.json``) and its ``Runner``: database build (with the prefilter
+mode), mzML / MGF reading, spectrum processing, the narrow and open
+searches (``Scorer.score_table`` / ``Scorer.score_stream``) through the
+fused and the two-dispatch paths, RT / mobility prediction, LDA
+rescoring, FDR, protein grouping, TMT quant and the TSV / PIN / JSON
+outputs. Regimes not ported yet raise ``NotImplementedError`` naming
+their ROADMAP item.
 """
 
 __version__ = "0.1.0"

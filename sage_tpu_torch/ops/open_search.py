@@ -18,22 +18,26 @@ bucketed index walk, database.rs:480-536 and scoring.rs:335-382):
 2. Each range's peptide ids are gathered into one entry row per
    (spectrum, band), as packed int32 keys ``((2^25 - pep) << 5) | z``
    (``2^25 - pep`` when there is one fragment-charge plane), and each row
-   is sorted by the bitonic kernels of ``pallas_sort`` (peptide
-   descending; invalid entries are INT32_MAX and sort to the tail).
+   is sorted by the kernels of ``pallas_sort`` (peptide descending;
+   invalid entries are INT32_MAX and sort to the tail); rows past
+   ``MAX_F`` keys take ``torch.sort``, as the JAX package takes
+   ``lax.sort`` there.
 3. Per query row (spectrum x charge x isotope) the entries are masked by
    the row's precursor range [i0, i1) and fragment-charge bound, counted
    by run length, and the top-K (count desc, peptide desc) kept exactly:
    the PreScore tie rule (scoring.rs:43-49).
 
 Returns the packed [R, 2K+2] i32 layout of the fused path's merge
-(vals[K], pep[K], matched_total, scored). Every integer field that the
+(vals[K], pep[K], matched_total, scored); the two-dispatch path takes the
+same layout from :meth:`OpenSearcher.preliminary_packed`, which splits a
+batch past the element budget recursively. Every integer field that the
 JAX package packs as int32 stays int32.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -339,31 +343,36 @@ def _open_count_core(frag_pep8, starts, lens, row_spec, row_i0, row_i1,
         neg, z_of = _entries_rows(frag_pep8, st, ln, Wc, Pk, Z)
     else:
         neg, z_of = _entries_flat(frag_pep8, st, ln, F, Pk, Z)
-    # Sort each entry row by peptide DESCENDING with the bitonic kernels:
-    # one i32 key per entry, the z tag packed into the low 5 bits. Inside
-    # one peptide's run the entries' order may differ from a sort of the
-    # (peptide, z) pair, which changes no count: runs are delimited by
+    # Sort each entry row by peptide DESCENDING; invalid entries go to the
+    # tail, so the axis can be cut back to F (> any true entry count).
+    # Inside one peptide's run the entries' order may differ between the
+    # two sorts below, which changes no count: runs are delimited by
     # peptide boundaries and the z mask is per entry.
-    F_sort = neg.shape[1]
-    if not use_pallas_sort(F_sort, n_pep):
-        raise NotImplementedError(
-            f"open-search entry rows of {F_sort} keys (> MAX_F) or "
-            f"{n_pep} peptides (>= 2^25): the JAX package sorts these with "
-            "lax.sort through the two-dispatch path, which is not ported "
-            "yet (ROADMAP Queue 1 item 2)"
-        )
-    pep_e = torch.where(neg < _NOPEP, -neg, -1)
-    valid_e = pep_e >= 0
-    key = (_PMAX - pep_e) if z_of is None else (((_PMAX - pep_e) << 5) | z_of)
-    key = torch.where(valid_e, key, INT32_MAX).to(torch.int32)
-    key_s = bitonic_sort_rows(key)[:, :F]
-    valid_s = key_s != INT32_MAX
-    if z_of is None:
-        pep_sorted = torch.where(valid_s, _PMAX - key_s, -1)
-        z_sorted = None
+    if use_pallas_sort(neg.shape[1], n_pep):
+        # the row-sort kernels: one i32 key per entry, the z tag packed
+        # into the low 5 bits
+        pep_e = torch.where(neg < _NOPEP, -neg, -1)
+        valid_e = pep_e >= 0
+        key = ((_PMAX - pep_e) if z_of is None
+               else (((_PMAX - pep_e) << 5) | z_of))
+        key = torch.where(valid_e, key, INT32_MAX).to(torch.int32)
+        key_s = bitonic_sort_rows(key)[:, :F]
+        valid_s = key_s != INT32_MAX
+        if z_of is None:
+            pep_sorted = torch.where(valid_s, _PMAX - key_s, -1)
+            z_sorted = None
+        else:
+            pep_sorted = torch.where(valid_s, _PMAX - (key_s >> 5), -1)
+            z_sorted = torch.where(valid_s, key_s & 31, 0)
     else:
-        pep_sorted = torch.where(valid_s, _PMAX - (key_s >> 5), -1)
-        z_sorted = torch.where(valid_s, key_s & 31, 0)
+        # rows past MAX_F keys, or peptide ids past the packed key's 25
+        # bits: the JAX package sorts these with lax.sort outside any
+        # kernel, and the port with torch.sort under the same gate
+        neg_s, order = torch.sort(neg, dim=1, stable=True)
+        neg_s = neg_s[:, :F]
+        pep_sorted = torch.where(neg_s < _NOPEP, -neg_s, -1)
+        z_sorted = (None if z_of is None
+                    else torch.gather(z_of, 1, order[:, :F]))
 
     Fax = int(pep_sorted.shape[1])
     change = pep_sorted[:, 1:] != pep_sorted[:, :-1]
@@ -827,3 +836,76 @@ class OpenSearcher:
                 if 0 < split.sum() < B:
                     return split
         return None
+
+    @staticmethod
+    def _sub_batches(split, rows, maxz):
+        """Iterate the two sides of a split: yields (spec_ids, rsel,
+        sub_rows, mz_sub, R_sub, n_sub) with spectrum indices remapped
+        order-preservingly and the rows padded to a power of two."""
+        si = rows["si"]
+        n_rows = si.size
+        maxz_rows = maxz[:n_rows]
+        B = split.shape[0]
+        for sel in (split, ~split):
+            spec_ids = np.flatnonzero(sel)
+            remap = np.full(B, -1, np.int64)
+            remap[spec_ids] = np.arange(spec_ids.size)
+            rsel = sel[si]
+            sub_rows = {
+                k: (
+                    remap[v[rsel]].astype(v.dtype) if k == "si" else v[rsel]
+                )
+                for k, v in rows.items()
+            }
+            n_sub = int(rsel.sum())
+            R_sub = 8
+            while R_sub < n_sub:
+                R_sub *= 2
+            mz_sub = np.full(R_sub, 2, np.int32)
+            mz_sub[:n_sub] = maxz_rows[rsel]
+            yield spec_ids, rsel, sub_rows, mz_sub, R_sub, n_sub
+
+    def preliminary_packed(
+        self, masses: np.ndarray, rows: Dict[str, np.ndarray],
+        maxz: np.ndarray, R: int, Zb: int, _ranges=None,
+    ):
+        """The two-dispatch path's preliminary counts: the packed i32
+        [R, 2K+2] layout for the query rows ``rows`` (maxz [R]), as a
+        device tensor, or as a host array when the batch was split into
+        spectrum sub-batches over the element budget (recursively, at any
+        depth; the ranges are computed once and sliced through the
+        recursion, and each side is fetched before it is written into the
+        parent's rows)."""
+        B = masses.shape[0]
+        starts, lens, Pk_eff, chunked, size, Wc, F, nbcov = self._geometry(
+            masses, rows, Zb, _ranges
+        )
+        split = self._find_split(B, size, nbcov)
+        if split is not None:
+            out = np.zeros((R, 2 * self.K + 2), np.int32)
+            for spec_ids, rsel, sub_rows, mz_sub, R_sub, n_sub in (
+                self._sub_batches(split, rows, maxz)
+            ):
+                sub = self.preliminary_packed(
+                    masses[spec_ids], sub_rows, mz_sub, R_sub, Zb,
+                    _ranges=(starts[spec_ids], lens[spec_ids]),
+                )
+                if isinstance(sub, torch.Tensor):
+                    sub = sub.cpu().numpy()
+                out[np.flatnonzero(rsel)] = sub[:n_sub]
+            return out
+        n_rows = rows["si"].size
+        ints = np.zeros((3, R), np.int32)  # spectrum, i0, i1
+        ints[0, :n_rows] = rows["si"]
+        ints[1, :n_rows] = rows["i0"]
+        ints[2, :n_rows] = rows["i1"]
+
+        def dev(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+        return _device_open_count(
+            self.frag_pep8_dev, dev(starts), dev(lens), dev(ints[0]),
+            dev(ints[1]), dev(ints[2]), dev(maxz),
+            F=F, Wc=Wc, Pk=Pk_eff, Z=Zb, K=self.K, R=R, chunked=chunked,
+            nbcov=nbcov, n_pep=self.n_pep,
+        )

@@ -9,11 +9,19 @@ counted with the rank-difference trick ``#(lo_q <= f) - #(hi_q < f)``
 over the per-charge query-window bounds (the CUDA kernel in
 ``csrc/stage1_counts.cu``). Windows of ``SAGE_TPU_OPEN_THRESHOLD`` (8192)
 candidates or more take the peak-major open search
-(``ops/open_search.py``, whose entry rows the bitonic kernels of
-``csrc/bitonic_sort.cu`` sort). One merge/rescore/select pass then keeps
-the top-K candidates per spectrum by the PreScore order, rescores them
-with full ladders, and selects the reported rows by an f32 hyperscore
-key that the host verifies with exact f64 arithmetic.
+(``ops/open_search.py``, whose entry rows the kernels of
+``csrc/row_sort.cu`` and ``csrc/bitonic_merge.cu`` sort). One
+merge/rescore/select pass then keeps the top-K candidates per spectrum
+by the PreScore order, rescores them with full ladders, and selects the
+reported rows by an f32 hyperscore key that the host verifies with exact
+f64 arithmetic.
+
+Where the fused path's preconditions do not hold (its bit-packed lanes,
+``SAGE_TPU_FUSED=0``, an open batch split deeper than one level, the
+per-spectrum sums past 2^24) the batch takes the two-dispatch path, as
+in the JAX package: stage 1 (the same kernels), a host PreScore merge
+(``merge_prescore_candidates``), then a per-item full rescore and the
+host's exact selection.
 
 Every f32 value keeps the reference's op order: eager ops (never a
 fused multiply-add), divisions by device tensors (a CUDA division by a
@@ -21,7 +29,8 @@ host scalar is computed as a reciprocal multiply), and strictly
 sequential sums. Integer fields that the JAX package packs as int32 stay
 int32.
 
-Regimes outside the fused path raise ``NotImplementedError``.
+Regimes that are not ported yet raise ``NotImplementedError``: chimeric
+search (ROADMAP Queue 1 item 9) and the banded narrow stage 1 (item 8).
 """
 
 from __future__ import annotations
@@ -85,6 +94,24 @@ def max_fragment_charge(cfg: Optional[int], precursor_charge: int) -> int:
     """Exclusive upper bound of the fragment-charge sweep (scoring.rs:234-247)."""
     cap = (cfg + 1) if cfg is not None else precursor_charge
     return max(min(precursor_charge, cap), 2)
+
+
+def merge_prescore_candidates(m, pp, ss, zz, ii, K):
+    """Host merge of flattened per-row candidates into the per-spectrum
+    top-K with the PreScore ordering (matched desc, peptide desc, charge
+    desc, isotope desc within each spectrum — scoring.rs:43-49 +
+    trim_hits). Returns the selected indices into the flat arrays, in
+    merged order."""
+    keep = m > 0
+    order = np.lexsort((-ii[keep], -zz[keep], -pp[keep], -m[keep], ss[keep]))
+    sel = np.flatnonzero(keep)[order]
+    ssel = ss[sel]
+    if ssel.size:
+        starts = np.r_[0, np.flatnonzero(np.diff(ssel)) + 1]
+        group_start = np.repeat(starts, np.diff(np.r_[starts, ssel.size]))
+        rank = np.arange(ssel.size) - group_start
+        sel = sel[rank < K]
+    return sel
 
 
 def _pad_count(n: int) -> int:
@@ -828,10 +855,24 @@ class Scorer:
         peaks_dev = self._peaks_device(masses, intens)
         rows = self._expand_rows(spectra)
         fd = self._fused_dispatch(spectra, masses, Pk, peaks_dev, rows=rows)
-        t = self._fused_finalize(spectra, fd, masses, intens, Pk)
+        t = None
+        if fd is not None:
+            t = self._fused_finalize(spectra, fd, masses, intens, Pk)
+            if t is None and fd.get("overflowed"):
+                t = self._rerun(spectra, masses, intens, Pk, peaks_dev, rows)
         if t is None:
-            t = self._rerun(spectra, masses, intens, Pk, peaks_dev, rows)
+            t = self._two_dispatch(spectra, masses, intens, Pk, peaks_dev,
+                                   rows)
         return t
+
+    def _two_dispatch(self, spectra, masses, intens, Pk, peaks_dev, rows):
+        """Stage 1 and the host merge, then the per-item rescore and the
+        host selection: the path of every batch the fused path declines."""
+        prelim = self._prelim_finalize(self._prelim_dispatch(
+            spectra, masses=masses, peaks_dev=peaks_dev, rows=rows
+        ))
+        return self._features_table(spectra, prelim, masses, intens, Pk,
+                                    peaks_dev=peaks_dev)
 
     def _rerun(self, spectra, masses, intens, Pk, peaks_dev, rows):
         """Score a device-planned open batch again after its sticky shapes
@@ -839,7 +880,8 @@ class Scorer:
         reruns it through its two-dispatch path, which records no sticky
         shapes; the port reruns it through the host-planned open branch
         of the fused path, with the same results and, skipping
-        note_shapes, the same sticky state."""
+        note_shapes, the same sticky state. Returns None where that
+        branch declines the batch too."""
         self.fused_reruns += 1
         log.warning(
             "open sticky shapes overflowed; re-running the batch through "
@@ -847,6 +889,8 @@ class Scorer:
         )
         fd = self._fused_dispatch(spectra, masses, Pk, peaks_dev, rows=rows,
                                   rerun=True)
+        if fd is None:
+            return None
         return self._fused_finalize(spectra, fd, masses, intens, Pk)
 
     def score_stream(self, batches):
@@ -859,26 +903,46 @@ class Scorer:
             masses, intens, Pk = self._pad_peaks(batch)
             peaks_dev = self._peaks_device(masses, intens)
             rows = self._expand_rows(batch)
-            return {
+            e = {
                 "batch": batch, "masses": masses, "intens": intens, "Pk": Pk,
                 "peaks_dev": peaks_dev, "rows": rows,
                 "fd": self._fused_dispatch(batch, masses, Pk, peaks_dev,
                                            rows=rows),
             }
+            if e["fd"] is None:
+                e["d1"] = self._prelim_dispatch(
+                    batch, masses=masses, peaks_dev=peaks_dev, rows=rows
+                )
+            return e
 
         def advance(e):
-            packed_np = e["fd"]["fused"].cpu().numpy()
-            e["table"] = self._fused_finalize(
-                e["batch"], e["fd"], e["masses"], e["intens"], e["Pk"],
-                packed=packed_np,
-            )
+            # the stage-1 fetch, host merge and stage-2 launch; or, on the
+            # fused path, the packed fetch and the whole host finalize
+            if e["fd"] is None:
+                e["prelim"] = self._prelim_finalize(e["d1"])
+                e["d2"] = self._stage2_dispatch(
+                    e["prelim"], e["intens"], e["peaks_dev"]
+                )
+            else:
+                packed_np = e["fd"]["fused"].cpu().numpy()
+                e["table"] = self._fused_finalize(
+                    e["batch"], e["fd"], e["masses"], e["intens"], e["Pk"],
+                    packed=packed_np,
+                )
             return e
 
         def finish(e):
-            if e["table"] is None:
-                return self._rerun(e["batch"], e["masses"], e["intens"],
-                                   e["Pk"], e["peaks_dev"], e["rows"])
-            return e["table"]
+            args = (e["batch"], e["masses"], e["intens"], e["Pk"],
+                    e["peaks_dev"], e["rows"])
+            if e["fd"] is None:
+                return self._stage2_finalize(
+                    e["batch"], e["prelim"], e["d2"],
+                    self.params.report_psms, e["masses"], e["Pk"],
+                )
+            t = e["table"]
+            if t is None and e["fd"].get("overflowed"):
+                t = self._rerun(*args)
+            return t if t is not None else self._two_dispatch(*args)
 
         yield from pipeline_stream(batches, admit, advance, finish)
 
@@ -1161,10 +1225,12 @@ class Scorer:
                         rerun=False):
         """Plan the batch's stage-1 segments (narrow) or open-search
         pseudo-segments, launch them and the merge pass; returns the
-        dispatch dict that _fused_finalize consumes. ``rerun`` plans an
-        open batch on the host without recording sticky shapes (see
-        _rerun). Raises NotImplementedError for every regime outside the
-        fused path."""
+        dispatch dict that _fused_finalize consumes, or None where the
+        fused path's preconditions do not hold (the caller takes the
+        two-dispatch path). ``rerun`` plans an open batch on the host
+        without recording sticky shapes (see _rerun)."""
+        import os
+
         p = self.params
         # bit-packing preconditions (see _build_fused's output layout)
         if (
@@ -1175,25 +1241,16 @@ class Scorer:
             or p.min_isotope_err < -16
             or p.max_isotope_err > 15
         ):
-            raise NotImplementedError(
-                "the fused path's packing preconditions do not hold "
-                f"(peptides={len(self.db)}, L={self.tables.L}, K={self.K}, "
-                f"max_precursor_charge={p.max_precursor_charge}, isotope "
-                f"errors {p.min_isotope_err}..{p.max_isotope_err}); the "
-                "two-dispatch path is not ported yet (ROADMAP Queue 1 "
-                "item 2)"
-            )
+            return None
+        if os.environ.get("SAGE_TPU_FUSED", "1") == "0":
+            return None
         if rows is None:
             rows = self._expand_rows(spectra)
         # file-annotated precursor charges bypass max_precursor_charge, so
         # the 5-bit charge lane must be checked against the actual rows
         n_rows = rows["si"].size
         if n_rows == 0 or int(rows["z"].max()) >= 32:
-            raise NotImplementedError(
-                "batch without query rows or with a precursor charge >= 32: "
-                "the two-dispatch path is not ported yet (ROADMAP Queue 1 "
-                "item 2)"
-            )
+            return None
         n_spec = len(spectra)
         max_win = int((rows["i1"] - rows["i0"]).max())
         W = min(next_power_of_two(max(max_win, 8)), self.tables.P_pad)
@@ -1223,10 +1280,13 @@ class Scorer:
 
         open_sticky = None
         if open_regime:
-            plan, ints, G_eff, open_segs, open_sticky = self._open_plan(
+            planned = self._open_plan(
                 masses, rows, peaks_dev, S_pad, slot, starts, counts_r,
                 maxz, Zb, G_eff, rerun,
             )
+            if planned is None:
+                return None
+            plan, ints, G_eff, open_segs, open_sticky = planned
             Ksel = min(self._ksel_open(), self.K)
         else:
             plan, ints, segs = self._narrow_plan(rows, S_pad, slot, maxz, Zb,
@@ -1344,7 +1404,8 @@ class Scorer:
         recorded, in one class or in up to three slot size classes, with
         a device-computed overflow check (``open_sticky``, read by
         _fused_finalize). Returns (plan, ints, G_eff, open_segs,
-        open_sticky)."""
+        open_sticky), or None for a batch past the element budget after
+        one split level."""
         os_ = self._open_searcher()
         n_spec = masses.shape[0]
         n_rows = rows["si"].size
@@ -1466,7 +1527,9 @@ class Scorer:
                         G_eff, u0, u1, rerun):
         """Host-planned open batch: searchsorted ranges, at most one split
         level (two pseudo-segments), and — unless ``rerun`` — the sticky
-        shapes and slot size classes that later batches plan under."""
+        shapes and slot size classes that later batches plan under. None
+        where a split side is still past the element budget: the recursive
+        split runs through the two-dispatch path."""
         n_spec = masses.shape[0]
         n_rows = rows["si"].size
         si = rows["si"]
@@ -1476,18 +1539,13 @@ class Scorer:
         split = os_._find_split(n_spec, size, nbcov_g)
         if split is not None:
             # one split level is two pseudo-segments; deeper recursion
-            # needs the two-dispatch path
+            # goes through the two-dispatch path
             for s_ids in (np.flatnonzero(split), np.flatnonzero(~split)):
                 if s_ids.size and (
                     s_ids.size * nbcov_g * (int(size[s_ids].max()) + 1)
                     > os_.MAX_ELEMENTS
                 ):
-                    raise NotImplementedError(
-                        "open batch over the element budget after one "
-                        "split level: the recursive split runs through the "
-                        "two-dispatch path, which is not ported yet "
-                        "(ROADMAP Queue 1 item 2)"
-                    )
+                    return None
         # per-spectrum max over covered bands of that band's entry count:
         # the unit the band-major count core pads F to
         tot_sb = g_lens.reshape(n_spec, Zb, nbcov_g, Pk_eff).sum(axis=(1, 3))
@@ -1602,8 +1660,10 @@ class Scorer:
         untruncated on-device candidate arrays.
 
         Returns None when a device-planned open batch overflowed its
-        sticky shapes: its entries may have been truncated, so the
-        overflowed classes grow and the caller reruns the batch."""
+        sticky shapes (its entries may have been truncated, so the
+        overflowed classes grow, ``d["overflowed"]`` is set and the caller
+        reruns the batch), and when a per-spectrum sum reached 2^24 (the
+        caller takes the two-dispatch path)."""
         if packed is None:
             packed = d["fused"].cpu().numpy()
         ost = d.get("open_sticky")
@@ -1625,6 +1685,7 @@ class Scorer:
                     )
                     bad = True
             if bad:
+                d["overflowed"] = True
                 return None
         S_pad, Ksel = d["S_pad"], d["Ksel"]
         n_spec = d["n_spec"]
@@ -1642,12 +1703,7 @@ class Scorer:
         # per-spectrum sums were accumulated in f32 on device: past 2^24
         # they lose integer exactness
         if stats[:, 2:4].max(initial=0.0) >= float(1 << 24):
-            raise NotImplementedError(
-                "per-spectrum matched/scored sums reached 2^24, past f32 "
-                "integer exactness; the two-dispatch path that the JAX "
-                "package falls back to is not ported yet (ROADMAP Queue 1 "
-                "item 2)"
-            )
+            return None
 
         # unpack the selected rows (see _build_fused's packed layout)
         cA = rows7[..., 0].astype(np.int64)
@@ -1802,6 +1858,282 @@ class Scorer:
                     hs_sorted[j + 1] if j + 1 < oi.size else 0.0
                 )
                 delta_best[s, j] = hs_sorted[0] - hs_sorted[j]
+
+    # ------------------------------------------------------------------
+    # Two-dispatch path: stage 1 + host merge, then stage 2 + host select
+    # ------------------------------------------------------------------
+
+    def _preliminary(self, spectra, masses=None, peaks_dev=None):
+        return self._prelim_finalize(
+            self._prelim_dispatch(spectra, masses=masses, peaks_dev=peaks_dev)
+        )
+
+    def _prelim_dispatch(self, spectra, masses=None, peaks_dev=None,
+                         rows=None):
+        """Launch stage 1 for every query row: the width-bucketed
+        (Wb, Lcb) segments, one segment at the batch's width, or the open
+        search's count core. Returns the dispatch dict that
+        _prelim_finalize fetches and merges."""
+        p = self.params
+        if rows is None:
+            rows = self._expand_rows(spectra)
+        if masses is None:
+            masses, intens, Pk = self._pad_peaks(spectra)
+            if peaks_dev is None:
+                peaks_dev = self._peaks_device(masses, intens)
+        else:
+            Pk = masses.shape[1]
+            if peaks_dev is None:
+                peaks_dev = self._peaks_device(masses, np.zeros_like(masses))
+        n_rows = rows["si"].size
+        n_spec = len(spectra)
+
+        max_win = int((rows["i1"] - rows["i0"]).max()) if n_rows else 1
+        W = min(next_power_of_two(max(max_win, 8)), self.tables.P_pad)
+        R = max(n_rows, 1)  # the kernels take any row count
+
+        spec_idx = np.zeros(R, dtype=np.int32)
+        row_z = np.zeros(R, dtype=np.int32)
+        row_iso = np.zeros(R, dtype=np.int32)
+        p0 = np.zeros(R, dtype=np.int32)
+        i0a = np.zeros(R, dtype=np.int32)
+        i1a = np.zeros(R, dtype=np.int32)
+        maxz = np.full(R, 2, dtype=np.int32)
+        spec_idx[:n_rows] = rows["si"]
+        row_z[:n_rows] = rows["z"]
+        row_iso[:n_rows] = rows["iso"]
+        p0[:n_rows] = np.minimum(rows["i0"], self.tables.P_pad - W)
+        i0a[:n_rows] = rows["i0"]
+        i1a[:n_rows] = rows["i1"]
+        cfg = p.max_fragment_charge
+        cap = np.minimum(rows["z"], cfg + 1) if cfg is not None else rows["z"]
+        maxz[:n_rows] = np.maximum(cap, 2)
+        # a batch without rows keeps one row on an empty window, which
+        # counts nothing
+
+        # only the charge planes this batch can reach
+        Zb = min(max(int(maxz[:n_rows].max()) - 1, 1), self.Z) if n_rows else 1
+        if self._open_path(W):
+            out_dev = self._open_searcher().preliminary_packed(
+                masses, rows, maxz, R, Zb
+            )
+            return {
+                "out_dev": out_dev, "counts_only": False,
+                "n_rows": n_rows, "n_spec": n_spec, "W": W,
+                "p0": p0, "spec_idx": spec_idx, "row_z": row_z,
+                "row_iso": row_iso,
+            }
+        buckets = self._row_buckets(rows, n_rows, W)
+        if buckets is None:
+            buckets = [(W, None, np.arange(n_rows))]
+        outs = []
+        for Wb, Lcb, idx in buckets:
+            # each (window-width, ladder-length) class at its own shape:
+            # stage-1 work is proportional to W x Lc x rows
+            nb = idx.size
+            Rb = max(nb, 1)
+            sub = np.zeros((7, Rb), np.int32)  # spec p0 i0 i1 maxz z iso
+            sub[4] = 2
+            sub[0, :nb] = spec_idx[idx]
+            sub[1, :nb] = np.minimum(i0a[idx], self.tables.P_pad - Wb)
+            sub[2, :nb] = i0a[idx]
+            sub[3, :nb] = i1a[idx]
+            sub[4, :nb] = maxz[idx]
+            sub[5, :nb] = row_z[idx]
+            sub[6, :nb] = row_iso[idx]
+            run, counts_only = self._stage1(Wb, Pk, Rb, Zb, Lcb)
+            outs.append({
+                "out_dev": run(peaks_dev, _to_dev(sub[:5], self.device)),
+                "counts_only": counts_only, "n_rows": nb, "W": Wb,
+                "p0": sub[1], "spec_idx": sub[0], "row_z": sub[5],
+                "row_iso": sub[6],
+            })
+        return {"buckets": outs, "n_spec": n_spec}
+
+    @staticmethod
+    def _prelim_part(d, K):
+        """Fetch one stage-1 dispatch and unpack it into flat
+        per-candidate arrays (m, pep, spec, z, iso) plus per-row (spec,
+        mtot, scored). Stage 1 returns the exact layouts: the counts-only
+        [R, W+2] window, or the [R, 2K+2] per-row top-K."""
+        out = d["out_dev"]
+        if isinstance(out, torch.Tensor):
+            out = out.cpu().numpy()
+        n_rows, W = d["n_rows"], d["W"]
+        p0, spec_idx = d["p0"], d["spec_idx"]
+        expected = W + 2 if d["counts_only"] else 2 * K + 2
+        if out.shape[1] != expected:
+            raise AssertionError(
+                f"stage-1 layout mismatch: out width {out.shape[1]} != "
+                f"{expected} (counts_only={d['counts_only']}, W={W}, K={K})"
+            )
+        if d["counts_only"]:
+            counts = out[:n_rows, :W]
+            mtot, scored = out[:n_rows, W], out[:n_rows, W + 1]
+            # the (vals, pep) layout of the top-K path: the whole window in
+            # reversed candidate order (peptide desc)
+            vals = counts[:, ::-1]
+            pep = p0[:n_rows, None] + (W - 1 - np.arange(W, dtype=np.int32))
+        else:
+            vals = out[:n_rows, :K]
+            pep = out[:n_rows, K : 2 * K]
+            mtot, scored = out[:n_rows, 2 * K], out[:n_rows, 2 * K + 1]
+        k_row = vals.shape[1]
+        m = vals.ravel()
+        pp = np.broadcast_to(pep, (n_rows, k_row)).ravel()
+        ss = np.repeat(spec_idx[:n_rows], k_row)
+        zz = np.repeat(d["row_z"][:n_rows], k_row)
+        ii = np.repeat(d["row_iso"][:n_rows], k_row)
+        return m, pp, ss, zz, ii, spec_idx[:n_rows], mtot, scored
+
+    def _prelim_finalize(self, d):
+        K = self.K
+        n_spec = d["n_spec"]
+        parts = [self._prelim_part(b, K) for b in d.get("buckets", (d,))]
+        if len(parts) == 1:
+            m, pp, ss, zz, ii, rspec, mtot, scored = parts[0]
+        else:
+            cols = [np.concatenate(c) for c in zip(*parts)]
+            m, pp, ss, zz, ii, rspec, mtot, scored = cols
+
+        # per-spectrum Poisson statistics (sums over the spectrum's rows)
+        spec_matched = np.bincount(
+            rspec, weights=mtot, minlength=n_spec
+        ).astype(np.int64)
+        spec_scored = np.bincount(
+            rspec, weights=scored, minlength=n_spec
+        ).astype(np.int64)
+
+        # rank the flattened candidates per spectrum (zero-matched dropped)
+        sel = merge_prescore_candidates(m, pp, ss, zz, ii, K)
+
+        return {
+            "cand_matched": m[sel].astype(np.int32),
+            "cand_pep": pp[sel].astype(np.int32),
+            "cand_spec": ss[sel].astype(np.int32),
+            "cand_charge": zz[sel].astype(np.int32),
+            "cand_iso": ii[sel].astype(np.int32),
+            "spec_matched": spec_matched,
+            "spec_scored": spec_scored,
+        }
+
+    def _features_table(self, spectra, prelim, masses, intens, Pk,
+                        peaks_dev) -> FeatureTable:
+        """Stage 2 and the vectorized host feature assembly
+        (scoring.rs:478-595, 675-767)."""
+        d2 = self._stage2_dispatch(prelim, intens, peaks_dev)
+        return self._stage2_finalize(spectra, prelim, d2,
+                                     self.params.report_psms, masses, Pk)
+
+    def _stage2_dispatch(self, prelim, intens, peaks_dev):
+        """Launch the full rescore of every merged candidate: one item
+        per (spectrum, peptide, charge)."""
+        p = self.params
+        spec_i = prelim["cand_spec"]
+        nI = spec_i.shape[0]
+        if nI == 0:
+            return {"out_dev": None, "nI": 0, "use_int": intens}
+        chg = prelim["cand_charge"]
+        ints = np.zeros((3, nI), np.int32)  # spectrum, peptide, maxz
+        ints[0] = spec_i
+        ints[1] = prelim["cand_pep"]
+        cap = (
+            np.minimum(chg, p.max_fragment_charge + 1)
+            if p.max_fragment_charge is not None
+            else chg
+        )
+        ints[2] = np.minimum(np.maximum(cap, 2), self.Z + 1)
+        Zb = min(max(int(ints[2].max()) - 1, 1), self.Z)
+        return {"out_dev": self._stage2_rescore(
+            peaks_dev, _to_dev(ints, self.device), Zb), "nI": nI,
+            "use_int": intens}
+
+    def _stage2_rescore(self, peaks_dev, ints, Zb):
+        """``rescore_candidate`` for the items ``ints`` [3, N] (spectrum,
+        peptide, exclusive fragment-charge bound), one candidate each:
+        f32 [N, 7] (mb, my, summed_b, summed_y, ppm_sum, longest_b,
+        longest_y). The rescore builds its [items, S, L, Pk] compare grid
+        a chunk of items at a time."""
+        spec = ints[0].long()
+        f = self.tables.lad_full[ints[1].long()][:, None]  # [N, 1, S, L]
+        mb, my, sb, sy, pp, lb, ly = rescore_candidate(
+            f, peaks_dev[0][spec], peaks_dev[1][spec], ints[2][:, None],
+            series=self.series, frag_tol=_tol_tuple(self.params.fragment_tol),
+            Z=Zb,
+        )
+        f32 = torch.float32
+        return torch.stack(
+            [mb.to(f32), my.to(f32), sb, sy, pp, lb.to(f32), ly.to(f32)],
+            dim=-1,
+        )[:, 0]
+
+    def _stage2_finalize(self, spectra, prelim, d2, report_psms, masses,
+                         Pk) -> FeatureTable:
+        """Exact f64 hyperscores of the rescored items, the per-spectrum
+        ranking by (hyperscore desc, merge order), and the reported
+        rows' columns."""
+        p = self.params
+        spec_i = prelim["cand_spec"]
+        pep_i = prelim["cand_pep"]
+        chg = prelim["cand_charge"]
+        iso = prelim["cand_iso"]
+        nI = d2["nI"]
+        spec_ids = [s.id for s in spectra]
+        if nI == 0:
+            t = FeatureTable.empty()
+            t.spec_ids = spec_ids
+            return t
+        out = d2["out_dev"].cpu().numpy()  # f32 [nI, 7]
+        mb = out[:nI, 0].astype(np.int32)
+        my = out[:nI, 1].astype(np.int32)
+        sb, sy, ppm_sum = out[:nI, 2], out[:nI, 3], out[:nI, 4]
+        lb = out[:nI, 5].astype(np.int32)
+        ly = out[:nI, 6].astype(np.int32)
+
+        # vectorized exact feature math
+        hs = hyperscore_vec(p.score_type, mb, my, sb, sy)
+        ssum = (sb + sy).astype(np.float32)
+        ppm = np.where(
+            ssum != 0, ppm_sum / np.where(ssum == 0, np.float32(1.0), ssum), 0.0
+        ).astype(np.float32)
+        ok = (mb + my) >= p.min_matched_peaks
+        if not ok.any():
+            t = FeatureTable.empty()
+            t.spec_ids = spec_ids
+            return t
+
+        # group candidates by spectrum (the arrays are spectrum-ascending)
+        # and stable-sort each group by hyperscore desc (scoring.rs:495)
+        idx_all = np.flatnonzero(ok)
+        order = np.lexsort((-hs[idx_all], spec_i[idx_all]))
+        items = idx_all[order]
+        s_srt = spec_i[items]
+        hs_srt = hs[items]
+        starts = np.r_[0, np.flatnonzero(np.diff(s_srt)) + 1]
+        counts = np.diff(np.r_[starts, s_srt.size])
+        group_start = np.repeat(starts, counts)
+        rank = np.arange(s_srt.size) - group_start
+
+        # delta_next vs the next candidate of the same group (0 past the
+        # end); delta_best vs the group's best
+        nxt = np.r_[hs_srt[1:], 0.0]
+        same = np.r_[s_srt[1:] == s_srt[:-1], False]
+        delta_next = hs_srt - np.where(same, nxt, 0.0)
+        delta_best = hs_srt[group_start] - hs_srt
+
+        rep = rank < report_psms
+        ri = items[rep]  # original candidate indices of reported PSMs
+
+        return self._emit_table(
+            spectra,
+            s_of=spec_i[ri], pep=pep_i[ri], z_of=chg[ri], iso_i=iso[ri],
+            mb=mb[ri], my=my[ri], sb=sb[ri], sy=sy[ri], ppm=ppm[ri],
+            lb=lb[ri], ly=ly[ri], hs=hs[ri], rank0=rank[rep],
+            delta_next=delta_next[rep], delta_best=delta_best[rep],
+            spec_matched=prelim["spec_matched"],
+            spec_scored=prelim["spec_scored"],
+            tic_override=None, masses=masses, use_int=d2["use_int"], Pk=Pk,
+        )
 
     def _row_buckets(self, rows, n_rows, W):
         """Split query rows into up to 4 quarter-octave window-width

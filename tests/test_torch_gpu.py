@@ -1,12 +1,15 @@
 """The port on a CUDA device: the stage-1, row-sort and merge kernels
-against their plain versions on the card, and the whole narrow and open paths on
-the card against the CPU.
+against their plain versions on the card, and the whole narrow and open
+paths (fused and two-dispatch) and the Runner on the card against the
+CPU.
 Every test here needs a card; where there is none they skip.
 
 Run on a machine with a card (the variable keeps conftest.py from
 importing jax, which that machine may not have):
     SAGE_TPU_TEST_PLATFORM=cuda python -m pytest tests/test_torch_gpu.py -q -m gpu
 """
+
+import json
 
 import numpy as np
 import pytest
@@ -220,3 +223,78 @@ def test_open_path_card_matches_cpu(cuda, small, monkeypatch):
         for k in b.columns:
             np.testing.assert_array_equal(a.columns[k], b.columns[k],
                                           err_msg=f"column {k}")
+
+
+@pytest.mark.parametrize("regime", ["narrow", "open"])
+def test_two_dispatch_card_matches_cpu(cuda, small, monkeypatch, regime):
+    """The two-dispatch path (SAGE_TPU_FUSED=0) on the card, its stage-1
+    or row-sort kernel launched, against the CPU: every FeatureTable
+    column equal."""
+    db, spectra = small
+    monkeypatch.setenv("SAGE_TPU_FUSED", "0")
+    if regime == "open":
+        monkeypatch.setenv("SAGE_TPU_OPEN_THRESHOLD", "1")
+        params = SearchParams(
+            precursor_tol=Tolerance("da", -500.0, 100.0),
+            fragment_tol=Tolerance("ppm", -10.0, 10.0), report_psms=2,
+        )
+        count = ("row_sort", lambda: pallas_sort.launches["row_sort"])
+    else:
+        params = _params(("ppm", -10.0, 10.0))
+        count = ("stage1", lambda: pallas_stage1.launches)
+    before = count[1]()
+    t_gpu = list(Scorer(db, params, device=cuda).score_stream(
+        [spectra[:96], spectra[96:192]]))
+    assert count[1]() > before, count[0]
+    t_cpu = list(Scorer(db, params, device="cpu").score_stream(
+        [spectra[:96], spectra[96:192]]))
+    for a, b in zip(t_gpu, t_cpu):
+        assert len(a) == len(b) > 0
+        for k in b.columns:
+            np.testing.assert_array_equal(a.columns[k], b.columns[k],
+                                          err_msg=f"column {k}")
+
+
+def _write_mgf(path, spectra):
+    """The spectra as an MGF file: singly charged peaks (mass + proton)."""
+    from sage_tpu_torch.chem.mass import PROTON
+
+    lines = []
+    for s in spectra:
+        prec = s.precursors[0]
+        lines += ["BEGIN IONS", f"TITLE={s.id}", f"PEPMASS={prec.mz!r}",
+                  f"CHARGE={prec.charge}+",
+                  f"RTINSECONDS={60.0 * s.scan_start_time!r}"]
+        lines += [f"{float(m) + float(PROTON)!r} {float(v)!r}"
+                  for m, v in zip(s.masses, s.intensities)]
+        lines.append("END IONS")
+    path.write_text("\n".join(lines) + "\n")
+
+
+def test_runner_card_matches_cpu(cuda, tmp_path):
+    """The Runner on the card and on the CPU, from a FASTA and an MGF
+    file to results.sage.tsv and results.sage.pin: byte-equal files, the
+    stage-1 kernel launched."""
+    from sage_tpu_torch.pipeline.input import build_search
+    from sage_tpu_torch.pipeline.runner import Runner
+
+    text = synth_fasta(50)
+    (tmp_path / "db.fasta").write_text(text)
+    params = DatabaseParams()
+    db = params.build(Fasta.parse(text, params.decoy_tag, True))
+    _write_mgf(tmp_path / "run.mgf", synth_spectra(db, 128, seed=9))
+    cfg = {"database": {"fasta": str(tmp_path / "db.fasta")},
+           "precursor_tol": {"ppm": [-20, 20]},
+           "fragment_tol": {"ppm": [-10, 10]}, "deisotope": False,
+           "mzml_paths": [str(tmp_path / "run.mgf")], "write_pin": True}
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        out = tmp_path / dev
+        before = pallas_stage1.launches
+        Runner(build_search(json.loads(json.dumps(cfg)),
+                            output_directory=str(out)), device=dev).run()
+        assert (pallas_stage1.launches > before) == (dev == "cuda")
+        outs[dev] = [(out / n).read_bytes()
+                     for n in ("results.sage.tsv", "results.sage.pin")]
+    assert outs["cuda"] == outs["cpu"]
+    assert outs["cpu"][0].count(b"\n") > 64

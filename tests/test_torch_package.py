@@ -41,6 +41,8 @@ def test_imports_with_jax_and_sage_tpu_blocked():
         "import sage_tpu_torch.ops.open_search\n"
         "import sage_tpu_torch.bench_baseline\n"
         "import sage_tpu_torch.index.builder\n"
+        "import sage_tpu_torch.pipeline.runner\n"
+        "import sage_tpu_torch.cli\n"
         "assert 'jax' not in [m.split('.')[0] for m in sys.modules"
         " if sys.modules[m] is not None]\n"
         "print('ok')\n"
@@ -104,23 +106,60 @@ def _one_spectrum(db, charge=2):
     return s
 
 
-@pytest.mark.parametrize(
-    "regime",
-    ["chimera", "open", "banded", "isotope_range", "overflow"],
-)
-def test_out_of_slice_regimes_raise(regime, monkeypatch):
-    """Each regime outside the fused path raises NotImplementedError
-    naming its ROADMAP item; none falls back. "open" is an open-search
-    batch over the element budget after one split level."""
+# the Runner's regimes that are not ported yet, each with its ROADMAP item
+_RUNNER_REGIMES = {
+    "lfq": "Queue 1 item 10", "parquet": "Queue 1 item 11",
+    "write_report": "Queue 1 item 11", "bruker_d": "Queue 1 item 11",
+    "mesh_shape": "Queue 1 item 12", "distributed": "Queue 1 item 12",
+}
+
+
+def _runner_regime_raises(regime, tmp_path, monkeypatch):
+    from sage_tpu_torch.pipeline.input import build_search
+    from sage_tpu_torch.pipeline.runner import Runner
+
+    fasta = tmp_path / "tiny.fasta"
+    fasta.write_text(">sp|P0|P0_SYN s\nMKAAGLLCPEDKRWAGHTEKLSTPQR\n")
+    cfg = {"database": {"fasta": str(fasta)},
+           "precursor_tol": {"ppm": [-20, 20]},
+           "fragment_tol": {"ppm": [-10, 10]},
+           "mzml_paths": [str(tmp_path / "run.mzML")]}
+    kw = {}
+    if regime == "lfq":
+        cfg["quant"] = {"lfq": True}
+    elif regime in ("parquet", "write_report"):
+        kw[regime] = True
+    elif regime == "bruker_d":
+        (tmp_path / "run.d").mkdir()
+        cfg["mzml_paths"] = [str(tmp_path / "run.d")]
+    elif regime == "mesh_shape":
+        monkeypatch.delenv("SAGE_TPU_MESH", raising=False)
+        kw["mesh_shape"] = (2, 1)
+    else:
+        monkeypatch.setenv("SAGE_TPU_DISTRIBUTED", "1")
+    search = build_search(cfg, output_directory=str(tmp_path / "out"), **kw)
+    with pytest.raises(NotImplementedError, match=_RUNNER_REGIMES[regime]):
+        Runner(search, device="cpu").run()
+
+
+@pytest.mark.parametrize("regime", ["chimera", "banded"]
+                         + sorted(_RUNNER_REGIMES))
+def test_out_of_slice_regimes_raise(regime, monkeypatch, tmp_path):
+    """Each regime that is not ported yet raises NotImplementedError
+    naming its ROADMAP item; none falls back: chimeric search and the
+    banded narrow stage 1 in the Scorer, and the Runner's label-free
+    quant, parquet output, HTML report, Bruker .d input, a mesh of more
+    than one device and a multi-process run."""
     import sage_tpu_torch.chem.mass as tmass
     from sage_tpu_torch.ops.search import Scorer, SearchParams
 
+    if regime in _RUNNER_REGIMES:
+        _runner_regime_raises(regime, tmp_path, monkeypatch)
+        return
     db = _tiny_db()
     kw = {}
     if regime == "chimera":
         kw["chimera"] = True
-    if regime == "isotope_range":
-        kw["max_isotope_err"] = 16
     params = SearchParams(
         precursor_tol=tmass.Tolerance("da", -50.0, 50.0),
         fragment_tol=tmass.Tolerance("ppm", -10.0, 10.0),
@@ -132,31 +171,7 @@ def test_out_of_slice_regimes_raise(regime, monkeypatch):
             Scorer(db, params, device="cpu")
         return
     scorer = Scorer(db, params, device="cpu")
-    if regime == "open":
-        from sage_tpu_torch.ops.open_search import OpenSearcher
-
-        monkeypatch.setenv("SAGE_TPU_OPEN_THRESHOLD", "8")
-        monkeypatch.setattr(OpenSearcher, "MAX_ELEMENTS", 1)
-        spec = spec + [_one_spectrum(db, charge=3)]
-        match = "Queue 1 item 2"
-    elif regime == "banded":
-        monkeypatch.setenv("SAGE_TPU_OPEN_THRESHOLD", "999999999")
-        monkeypatch.setattr(Scorer, "_narrow_banded_gate", lambda self, W: True)
-        match = "Queue 1 item 8"
-    elif regime == "isotope_range":
-        match = "Queue 1 item 2"
-    else:
-        # per-spectrum matched sums past f32 integer exactness
-        real = Scorer._fused_dispatch
-
-        def dispatch(self, *a, **k):
-            d = real(self, *a, **k)
-            d["fused"] = d["fused"].clone()
-            S_pad, Ksel = d["S_pad"], d["Ksel"]
-            d["fused"][S_pad * Ksel, 2] = float(1 << 24)
-            return d
-
-        monkeypatch.setattr(Scorer, "_fused_dispatch", dispatch)
-        match = "Queue 1 item 2"
-    with pytest.raises(NotImplementedError, match=match):
+    monkeypatch.setenv("SAGE_TPU_OPEN_THRESHOLD", "999999999")
+    monkeypatch.setattr(Scorer, "_narrow_banded_gate", lambda self, W: True)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         scorer.score_table(spec)

@@ -1,6 +1,7 @@
 """Drive the PyTorch port on one CUDA card and check it: the Runner and
-the CLI from FASTA and spectrum files to results.sage.tsv, and the narrow
-and open searches through the fused and the two-dispatch paths.
+the CLI from FASTA and spectrum files to results.sage.tsv, lfq.tsv and
+the HTML report, and the narrow, banded, chimeric and open searches
+through the fused and the two-dispatch paths.
 
 Usage (from the repository root, on a machine with an NVIDIA H100):
 
@@ -81,12 +82,58 @@ seconds):
 14. Two-dispatch open: phase 6's 4 x 512 spectra with SAGE_TPU_FUSED=0;
     the row-sort counter must be > 0 and every column must equal phase
     6's tables.
+15. Banded narrow stage 1: phase 3's spectra with a +-1.5 Da precursor
+    window (W = 4096 on this database) and +-10 ppm fragments, the banded
+    stage 1 asked for with SAGE_TPU_NARROW_BANDED=1. After a warm-up
+    batch, one 8192-spectrum batch through ``score_stream`` with the
+    counters set to 0 just before: the banded branch and the row-sort
+    kernel must run. Every column must equal the batch's with
+    SAGE_TPU_NARROW_BANDED=0 (the candidate-major stage-1 kernel at
+    Wb = 4096) and with no environment variable (the auto gate, which
+    must take the path its predicate names), and 64 spectra must give
+    equal columns on the card and the CPU. Prints W, nbcov, F, the
+    largest entry count, the overflow reruns, the runs' spectra/s, peak
+    memory and one batch's profile (binary search, count core, sort,
+    rescore); the sort kernel is checked against its plain version and
+    timed at the batch's sort inputs.
+16. Banded, low-resolution fragments: phase 15 with +-0.5 Da fragments
+    (+-1.0 Da if the entry rows stay within 2^15 keys), as ion-trap MS2
+    is searched. The merge kernel must launch on this path; the columns
+    must equal the candidate-major run's. The merge kernel is checked
+    against its plain version and torch.sort, and timed, at every block
+    the batch gave it, beside its bound.
+19. Banded against candidate-major (runs after 16): both stage 1s,
+    forced, on phase 15's batch at +-1.5, +-3 and +-6 Da precursor
+    windows (W = 4096, 8192, 16384; SAGE_TPU_OPEN_THRESHOLD raised so the
+    wider two stay narrow), each with +-10 ppm and +-0.5 Da fragments:
+    every column equal, spectra/s of each path twice (banded,
+    candidate-major, candidate-major, banded), and one profiled batch of
+    each for the stage 1's device ms and the device's busy time. Prints
+    whether both banded repetitions beat both candidate-major ones and
+    which path the auto gate (set from these cells) takes.
+17. Chimeric search: 2,048 spectra, each the peaks of two of the
+    database's peptides within 1.5 Da (the precursor the first's),
+    precursor +-1.5 Da, fragment +-10 ppm, report_psms 2, through
+    ``score_stream``; the stage-1 kernel must launch; both peptides must
+    be found in over half the spectra; 32 spectra on the card and the
+    CPU must give equal columns. Prints the host's peak-removal seconds.
+18. LFQ and the report: (a) ``python -m sage_tpu_torch`` on the card
+    against ``Runner(..., device="cpu")`` on a 300-protein FASTA and two
+    mzML files of 512 MS2 + 128 MS1 scans (isotope envelopes over an
+    elution profile, the second file shifted in RT), with ``quant.lfq``,
+    ``write_report`` and ``chimera``: results.sage.tsv, lfq.tsv and
+    sage.report.html byte-equal (output directories replaced by a
+    placeholder) and target MS1 peaks at 5% FDR; (b) the Runner on the
+    card on a 6,000-protein FASTA and two files of 4,096 MS2 + 1,024 MS1
+    scans: the run's, the quant's and the report's seconds.
 10. The ``kernels`` JSON line, the nvidia-smi line, and the final
     ``{"ok": true, ...}`` line. ``launches`` is each kernel's count on
-    its main path (phase 3 or 6), ``launches_by_path`` its count on each
-    path that runs it (phases 3, 11 and 13; 6 and 14); the merge kernel,
-    which those runs never launch, adds phase 7's count as
-    ``forced_launches``.
+    its main path (phase 3, 6 or 16), ``launches_by_path`` its count on
+    each path that runs it (stage-1: phases 3, 11, 13, 17 and phase 15's
+    candidate-major run; row sort: 6, 14, 15, 16; merge: 16, 6, 14;
+    phases 15 and 16 count their banded runs). The
+    merge kernel's times are phase 16's; phase 7's lowered-limit run
+    adds ``forced_launches``.
 
 A ``# record:`` line repeats the run's numbers as JSON.
 """
@@ -132,6 +179,19 @@ OPEN_BATCH = 512
 OPEN_BATCHES = 4
 # the one-pass limit of phase 7, below the open rows' length
 LOWERED_BLOCK_MAX = 1024
+# phases 15-17: a low-resolution precursor window, which puts a batch's
+# widest window at W = 4096 candidates on bench.py's database
+BANDED_PREC = ("da", -1.5, 1.5)
+BANDED_BATCH = 8192
+CHIMERA_SPECTRA = 2048
+# phase 19: precursor windows (+-Da) that put the batch's widest window at
+# W = 4096, 8192 and 16384 candidates, each with a ppm and a Da fragment
+# tolerance
+CROSSOVER_PREC = (1.5, 3.0, 6.0)
+CROSSOVER_FRAG = (("ppm", -10.0, 10.0), ("da", -0.5, 0.5))
+# phase 18's inputs: (proteins, MS2 scans, MS1 scans) of each of two files
+LFQ_SMALL = (300, 512, 128)
+LFQ_LARGE = (6000, 4096, 1024)
 
 
 def log(*a):
@@ -228,12 +288,13 @@ def bound_ms(nbytes, ops, ops_per_s):
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
-def profile_batch(torch, scorer, batch, ranged, kernel_keys):
+def profile_batch(torch, scorer, batch, ranged, kernel_keys, top=8):
     """Where one batch's time goes: host phases of ``score_table`` timed
     with a synchronise after each, then the same batch under
-    torch.profiler for the device's busy time, named ranges and top
-    kernels. ``ranged``: (module, attribute) pairs wrapped in named
-    ranges; ``kernel_keys``: label -> substring of a kernel's name."""
+    torch.profiler for the device's busy time, named ranges and the
+    ``top`` host ops by device time. ``ranged``: (module, attribute)
+    pairs wrapped in named ranges; ``kernel_keys``: label -> substring of
+    a kernel's name."""
     sync = torch.cuda.synchronize
     ph = {}
     t0 = time.perf_counter()
@@ -305,7 +366,7 @@ def profile_batch(torch, scorer, batch, ranged, kernel_keys):
                     if e.key == n and str(e.device_type).endswith("CUDA"))
              / 1e3 for n in names}
     top = sorted((e for e in ev if not str(e.device_type).endswith("CUDA")),
-                 key=dev_us, reverse=True)[:8]
+                 key=dev_us, reverse=True)[:top]
     ph.update(profiled_wall_ms=wall, device_busy_ms=busy,
               **{f"{k}_kernel_device_ms": v for k, v in kern.items()},
               **{f"{n}_device_ms": v for n, v in stages.items()},
@@ -318,7 +379,8 @@ def profile_batch(torch, scorer, batch, ranged, kernel_keys):
             + "; ranges (their torch ops' kernels / device span): "
             + ", ".join(f"{n} {v:.2f} / {spans[n]:.2f}"
                         for n, v in stages.items()))
-        log("# host ops by the device time of the kernels they launched:")
+        if top:
+            log("# host ops by the device time of the kernels they launched:")
         for e in top:
             log(f"#   {dev_us(e) / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:70]}")
     else:
@@ -1168,11 +1230,680 @@ def two_dispatch_phase(torch, tsearch, name, db, fused, kernel, counts,
                 batch_phases_ms=ph)
 
 
+class Recording:
+    """Replace ``owner.attr`` with a wrapper that calls the real function
+    and then ``keep(result, *args, **kwargs)``, until the block ends."""
+
+    def __init__(self, owner, attr, keep):
+        self.owner, self.attr, self.keep = owner, attr, keep
+
+    def __enter__(self):
+        self.real = real = getattr(self.owner, self.attr)
+
+        def call(*a, **k):
+            out = real(*a, **k)
+            self.keep(out, *a, **k)
+            return out
+
+        setattr(self.owner, self.attr, call)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.attr, self.real)
+
+
+class EnvSet:
+    """Set (or, with None, remove) an environment variable until the
+    block ends, then restore it."""
+
+    def __init__(self, name, value):
+        self.name, self.value = name, value
+
+    def __enter__(self):
+        self.old = os.environ.get(self.name)
+        if self.value is None:
+            os.environ.pop(self.name, None)
+        else:
+            os.environ[self.name] = self.value
+        return self
+
+    def __exit__(self, *exc):
+        if self.old is None:
+            os.environ.pop(self.name, None)
+        else:
+            os.environ[self.name] = self.old
+
+
+def banded_phase(torch, mods, db, spectra, times, name, frags,
+                 cpu_spectra=0, lowres=False):
+    """Phases 15 and 16: bench.py's spectra with a +-1.5 Da precursor
+    window, which puts the batch's widest window at W = 4096, through the
+    banded stage 1 (SAGE_TPU_NARROW_BANDED=1). A warm-up batch (phase
+    3's) learns the entry capacity F, then phase 3's first batch runs with
+    the launch counters set to 0 just before and read just after: the
+    banded branch, the row-sort kernel and, with ``lowres``, the merge
+    kernel must launch. Every FeatureTable column must equal the same
+    batch's with SAGE_TPU_NARROW_BANDED=0 (the candidate-major stage-1
+    kernel at Wb = 4096) and with no environment variable (the auto
+    gate, whose choice is checked). ``frags``: fragment tolerances in
+    order of preference; with ``lowres`` the first whose F puts the entry
+    rows past the one-pass limit is kept. ``cpu_spectra``: that many
+    spectra on the card and on the CPU, every column equal. The sort (and
+    merge) kernels are then checked against their plain versions and
+    timed at the inputs the batch gave them."""
+    tsearch, tbanded, topen, pallas_sort, pallas_stage1 = (
+        mods["search"], mods["banded"], mods["open"], mods["sort"],
+        mods["stage1"])
+    sync = torch.cuda.synchronize
+    B = BANDED_BATCH
+    warm, batch = spectra[:B], spectra[B:2 * B]
+    rec = {"batch": B}
+    with Phase(name, times), EnvSet("SAGE_TPU_NARROW_BANDED", "1"):
+        for frag in frags:
+            params = tsearch.SearchParams(
+                precursor_tol=tsearch.Tolerance(*BANDED_PREC),
+                fragment_tol=tsearch.Tolerance(*frag))
+            t0 = time.perf_counter()
+            scorer = tsearch.Scorer(db, params)
+            reruns0 = scorer.fused_reruns
+            list(scorer.score_stream([warm]))
+            sync()
+            warm_s = time.perf_counter() - t0
+            nb = scorer._nb
+            assert nb is not None, f"{name}: the warm-up took no banded batch"
+            log(f"# {name} fragment {frag}: scorer and warm-up batch in "
+                f"{warm_s:.2f} s; {nb.n_bands} bands of {nb.band_w} "
+                f"peptides, nstep {nb.nstep}, F {nb._F}")
+            if not lowres or nb._F > pallas_sort._BLOCK_MAX:
+                break
+            log(f"# {name}: F {nb._F} keeps the entry rows within one "
+                f"sort pass; next tolerance")
+        assert not lowres or nb._F > pallas_sort._BLOCK_MAX, nb._F
+        rec.update(fragment_tol=list(frag), n_bands=nb.n_bands,
+                   band_w=nb.band_w)
+
+        # the measured batch
+        scorer._psm_counter = 1
+        calls = []
+        pallas_stage1.launches = 0
+        for k in pallas_sort.launches:
+            pallas_sort.launches[k] = 0
+        torch.cuda.reset_peak_memory_stats()
+        with Recording(tbanded.NarrowBanded, "dispatch",
+                       lambda out, *a, **k: calls.append(out)):
+            t0 = time.perf_counter()
+            tables = list(scorer.score_stream([batch]))
+            sync()
+            wall_s = time.perf_counter() - t0
+        launches = dict(pallas_sort.launches)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        lp = dict(scorer.last_plan)
+        totmax = [int(c[1].item()) for c in calls]
+        reruns = scorer.fused_reruns - reruns0
+        log(f"# {name}: {B} spectra in {wall_s:.3f} s = {B / wall_s:.1f} "
+            f"spectra/s; banded dispatches {len(calls)}, W {lp.get('W')}, "
+            f"nbcov {[c[3] for c in calls]}, F {[c[2] for c in calls]}, "
+            f"totmax {totmax}, overflow reruns in the phase {reruns}; "
+            f"launches {launches}, stage1_counts {pallas_stage1.launches}; "
+            f"peak device memory {peak_gib:.2f} GiB")
+        assert calls and lp.get("banded"), f"{name}: no banded dispatch"
+        assert launches["row_sort"] > 0, launches
+        assert not lowres or launches["bitonic_merge"] > 0, launches
+        t = tables[0]
+        assert len(t) > 0.9 * B, len(t)
+        assert np.isfinite(t.columns["hyperscore"]).all()
+        assert np.isfinite(t.columns["delta_mass"]).all()
+        rec.update(spectra_per_s=B / wall_s, wall_s=wall_s,
+                   banded_dispatches=len(calls), W=lp.get("W"),
+                   nbcov=[c[3] for c in calls], F=[c[2] for c in calls],
+                   totmax=totmax, overflow_reruns=reruns,
+                   launches=launches, peak_device_gib=peak_gib)
+
+        # the candidate-major stage 1 on the same batch
+        with EnvSet("SAGE_TPU_NARROW_BANDED", "0"):
+            ref = tsearch.Scorer(db, params)
+            list(ref.score_stream([warm]))
+            ref._psm_counter = 1
+            pallas_stage1.launches = 0
+            sync()
+            t0 = time.perf_counter()
+            ref_t = list(ref.score_stream([batch]))[0]
+            sync()
+            ref_s = time.perf_counter() - t0
+            ref_launches = pallas_stage1.launches
+        assert "banded" not in ref.last_plan and ref_launches > 0
+        assert_tables_equal(t, ref_t, f"{name} banded vs candidate-major")
+        log(f"# {name}: candidate-major stage 1 (Wb {ref.last_plan.get('W')})"
+            f" {B} spectra in {ref_s:.3f} s = {B / ref_s:.1f} spectra/s, "
+            f"stage1_counts launches {ref_launches}; all "
+            f"{len(t.columns)} FeatureTable columns equal the banded run's "
+            f"({len(t)} PSMs)")
+        rec.update(reference_spectra_per_s=B / ref_s,
+                   reference_stage1_launches=ref_launches)
+
+        # the auto gate (no environment variable) on the same batch: the
+        # path it takes at this W is the gate's, the columns the same
+        with EnvSet("SAGE_TPU_NARROW_BANDED", None):
+            auto = tsearch.Scorer(db, params)
+            want = auto._narrow_banded_maybe(lp["W"]) is not None
+            auto._psm_counter = 1
+            auto_t = auto.score_table(batch)
+        took = bool(auto.last_plan.get("banded"))
+        assert took == want, (took, want)
+        assert_tables_equal(auto_t, t, f"{name} auto gate")
+        rec["auto_path"] = "banded" if took else "candidate_major"
+        log(f"# {name}: with no environment variable the gate took the "
+            f"{rec['auto_path']} stage 1 at W {lp['W']}; columns equal")
+
+        if cpu_spectra:
+            sub = batch[:cpu_spectra]
+            n0 = len(calls)
+            with Recording(tbanded.NarrowBanded, "dispatch",
+                           lambda out, nb_, *a, **k: calls.append(
+                               nb_.device.type)):
+                t_gpu = tsearch.Scorer(db, params).score_table(sub)
+                t_cpu = tsearch.Scorer(db, params,
+                                       device="cpu").score_table(sub)
+            assert {scorer.device.type, "cpu"} <= set(calls[n0:]), calls[n0:]
+            assert_tables_equal(t_gpu, t_cpu, f"{name} card vs CPU")
+            log(f"# {name} card vs CPU: {len(t_cpu)} PSMs of {len(sub)} "
+                f"spectra (banded), all {len(t_cpu.columns)} "
+                f"FeatureTable columns equal")
+
+        # the batch once more, its sort and merge inputs recorded
+        sorts, merges = [], []
+        scorer._psm_counter = 1
+        with Recording(topen, "bitonic_sort_rows",
+                       lambda out, x, *a, **k: sorts.append(x.clone())), \
+                Recording(pallas_sort, "merge_blocks",
+                          lambda out, x, cb: merges.append((x.clone(), cb))):
+            again = scorer.score_table(batch)
+        assert_tables_equal(again, t, f"{name} recorded run")
+        breakdown = profile_batch(
+            torch, scorer, batch,
+            [(tbanded, "_bounded_search"), (tbanded, "_open_count_core"),
+             (topen, "bitonic_sort_rows"), (tsearch, "rescore_candidate")],
+            {"row_sort": "row_sort_kernel",
+             "bitonic_merge": "bitonic_merge_blocks"},
+        )
+        rec["batch_breakdown"] = breakdown
+        rec["sort_rows"] = [list(x.shape) for x in sorts]
+
+        # the kernels against their plain versions at these inputs
+        for i, x in enumerate(sorts):
+            got = pallas_sort.bitonic_sort_rows(x)
+            assert torch.equal(got, torch.sort(x, dim=1).values), i
+            if x.shape[1] <= pallas_sort._BLOCK_MAX:
+                assert torch.equal(got, pallas_sort.sort_rows_plain(x)), i
+            elif i == 0:
+                Fp = 1 << (x.shape[1] - 1).bit_length()
+                cb = pallas_sort._BLOCK_MAX
+                assert torch.equal(
+                    pallas_sort.sort_blocks(x, cb, Fp, 2**31 - 1),
+                    pallas_sort.sort_blocks_plain(x, cb, Fp, 2**31 - 1))
+        for xb, cb in merges:
+            got = pallas_sort.merge_blocks(xb, cb)
+            assert torch.equal(got, pallas_sort.merge_blocks_plain(xb, cb))
+            assert torch.equal(got, torch.sort(xb.view(-1, cb), dim=1)
+                               .values.view(xb.shape))
+        sync()
+        log(f"# {name} kernels vs plain: {len(sorts)} sort inputs "
+            f"{rec['sort_rows']} and {len(merges)} merge inputs bit-equal "
+            f"(kernel, plain version and torch.sort)")
+        if lowres:
+            blocks = sum(xb.numel() // cb for xb, cb in merges)
+            log(f"# {name}: merge kernel {len(merges)} launches, {blocks} "
+                f"blocks of {pallas_sort._BLOCK_MAX} a batch")
+            rec["merge"] = time_merges(
+                torch, pallas_sort, merges,
+                f"{name} batch, {blocks} blocks of {pallas_sort._BLOCK_MAX}")
+            rec["merge"].update(launches=len(merges), blocks=blocks)
+        else:
+            rec["sort"] = time_sorts(torch, pallas_sort, sorts,
+                                     f"{name} {B}-spectrum batch")
+        del sorts, merges
+    return rec
+
+
+def crossover_phase(torch, mods, db, spectra, times):
+    """Phase 19: where the banded stage 1 beats the candidate-major one on
+    this card. Phase 15's 8192-spectrum batch, after a warm-up batch and
+    one untimed run of the batch itself (so F is learned and no batch is
+    redone), at precursor windows of +-1.5, +-3 and +-6 Da (the batch's
+    widest window at W = 4096, 8192 and 16384 candidates; the last two
+    kept in the narrow regime by raising SAGE_TPU_OPEN_THRESHOLD), each
+    with +-10 ppm and +-0.5 Da fragments. Both paths are forced
+    (SAGE_TPU_NARROW_BANDED=1 and =0) and timed in the order banded,
+    candidate-major, candidate-major, banded; every column must be equal.
+    One batch of each is then profiled: the stage 1's device ms (banded:
+    binary search, count core, sort kernels; candidate-major: stage-1
+    kernel and its top-K layout) beside the batch's device busy time.
+    Records per cell whether banded won both repetitions and which path
+    the auto gate takes there."""
+    tsearch, tbanded, topen, pallas_stage1 = (
+        mods["search"], mods["banded"], mods["open"], mods["stage1"])
+    sync = torch.cuda.synchronize
+    B = BANDED_BATCH
+    warm, batch = spectra[:B], spectra[B:2 * B]
+    flags = {"banded": "1", "candidate_major": "0"}
+    ranged = [(tbanded, "_bounded_search"), (tbanded, "_open_count_core"),
+              (tsearch, "_topk_layout"), (tsearch, "rescore_candidate")]
+    kernel_keys = {"stage1_counts": "stage1_counts",
+                   "row_sort": "row_sort_kernel",
+                   "bitonic_merge": "bitonic_merge_blocks"}
+    cells = []
+    with Phase("19_banded_crossover", times), \
+            EnvSet("SAGE_TPU_OPEN_THRESHOLD", str(1 << 20)):
+        for da in CROSSOVER_PREC:
+            for frag in CROSSOVER_FRAG:
+                params = tsearch.SearchParams(
+                    precursor_tol=tsearch.Tolerance("da", -da, da),
+                    fragment_tol=tsearch.Tolerance(*frag))
+                cell = {"precursor_da": da, "fragment_tol": list(frag)}
+                scorers, walls, tabs, peaks = {}, {}, {}, {}
+                for path, flag in flags.items():
+                    with EnvSet("SAGE_TPU_NARROW_BANDED", flag):
+                        sc = tsearch.Scorer(db, params)
+                        list(sc.score_stream([warm]))
+                        list(sc.score_stream([batch]))
+                    scorers[path], walls[path] = sc, []
+                for path in ("banded", "candidate_major",
+                             "candidate_major", "banded"):
+                    sc = scorers[path]
+                    sc._psm_counter = 1
+                    reruns0 = sc.fused_reruns
+                    torch.cuda.reset_peak_memory_stats()
+                    with EnvSet("SAGE_TPU_NARROW_BANDED", flags[path]):
+                        sync()
+                        t0 = time.perf_counter()
+                        tabs[path] = list(sc.score_stream([batch]))[0]
+                        sync()
+                    walls[path].append(time.perf_counter() - t0)
+                    peaks[path] = torch.cuda.max_memory_allocated() / 2**30
+                    assert sc.fused_reruns == reruns0, path
+                    assert (bool(sc.last_plan.get("banded"))
+                            == (path == "banded")), (path, sc.last_plan)
+                assert_tables_equal(tabs["banded"], tabs["candidate_major"],
+                                    f"crossover +-{da} Da {frag}")
+                lp = scorers["banded"].last_plan
+                with EnvSet("SAGE_TPU_NARROW_BANDED", None):
+                    auto = scorers["banded"]._narrow_banded_maybe(lp["W"])
+                cell.update(W=lp["W"], nbcov=lp["nbcov"], F=lp["F"],
+                            psms=len(tabs["banded"]),
+                            auto_path=("banded" if auto is not None
+                                       else "candidate_major"),
+                            banded_won=min(walls["candidate_major"])
+                            > max(walls["banded"]))
+                for path, sc in scorers.items():
+                    with EnvSet("SAGE_TPU_NARROW_BANDED", flags[path]):
+                        ph = profile_batch(torch, sc, batch, ranged,
+                                           kernel_keys, top=0)
+                    if path == "banded":
+                        s1 = (ph.get("_bounded_search_device_ms", 0)
+                              + ph.get("_open_count_core_device_ms", 0)
+                              + ph.get("row_sort_kernel_device_ms", 0)
+                              + ph.get("bitonic_merge_kernel_device_ms", 0))
+                    else:
+                        s1 = (ph.get("stage1_counts_kernel_device_ms", 0)
+                              + ph.get("_topk_layout_device_ms", 0))
+                    cell[path] = {
+                        "spectra_per_s": [B / w for w in walls[path]],
+                        "wall_s": walls[path], "peak_device_gib": peaks[path],
+                        "stage1_device_ms": s1 if ph.get("device_busy_ms")
+                        else None,
+                        "profile": ph}
+                bd, cm = cell["banded"], cell["candidate_major"]
+                log(f"# 19 crossover +-{da} Da, fragment {frag}: W {cell['W']}"
+                    f", nbcov {cell['nbcov']}, F {cell['F']}, {cell['psms']} "
+                    f"PSMs, columns equal; spectra/s banded "
+                    f"{[round(x, 1) for x in bd['spectra_per_s']]} vs "
+                    f"candidate-major "
+                    f"{[round(x, 1) for x in cm['spectra_per_s']]}; stage-1 "
+                    f"device ms banded {bd['stage1_device_ms']} vs "
+                    f"candidate-major {cm['stage1_device_ms']}; busy ms "
+                    f"{bd['profile'].get('device_busy_ms')} vs "
+                    f"{cm['profile'].get('device_busy_ms')}; peak GiB "
+                    f"{peaks['banded']:.2f} vs {peaks['candidate_major']:.2f}; "
+                    f"banded faster in both repetitions: {cell['banded_won']}"
+                    f"; the auto gate takes {cell['auto_path']}")
+                cells.append(cell)
+                del scorers, tabs
+    return {"cells": cells}
+
+
+def chimeric_spectra(db, n, seed=17):
+    """``n`` spectra of two peptides whose masses lie within 1.5 Da: 70%
+    of each one's b/y ions, the first's at 1e5-1e6 and the second's at
+    3e4-3e5, and 40 noise peaks at 1e3-1e4; the precursor (charge 2) is
+    the first peptide's. Returns the spectra and the (first, second)
+    peptide of each."""
+    from sage_tpu_torch.chem.mass import PROTON
+    from sage_tpu_torch.spectrum.processor import Precursor, ProcessedSpectrum
+
+    rng = np.random.default_rng(seed)
+    b, y = db.table.ladders()
+    mono, lens = db.table.mono, db.table.lens
+    order = np.argsort(mono, kind="stable")
+    out, pairs = [], []
+    while len(out) < n:
+        k = int(rng.integers(0, order.size - 8))
+        p, q = int(order[k]), int(order[k + int(rng.integers(1, 8))])
+        if abs(float(mono[q]) - float(mono[p])) > 1.5 or min(
+                lens[p], lens[q]) < 7:
+            continue
+        parts = []
+        for pep, lo, hi in ((p, 1e5, 1e6), (q, 3e4, 3e5)):
+            m = int(lens[pep]) - 1
+            f = np.concatenate([b[pep, :m], y[pep, :m]])
+            f = f[rng.random(f.shape[0]) < 0.7]
+            parts.append((f, rng.uniform(lo, hi, f.shape[0])))
+        parts.append((rng.uniform(150.0, float(mono[p]), 40),
+                      rng.uniform(1e3, 1e4, 40)))
+        masses = np.concatenate([m for m, _ in parts]).astype(np.float32)
+        intens = np.concatenate([v for _, v in parts]).astype(np.float32)
+        o = np.argsort(masses, kind="stable")
+        out.append(ProcessedSpectrum(
+            level=2, id=f"chimera={len(out)}", file_id=0,
+            scan_start_time=len(out) * 0.01, ion_injection_time=1.0,
+            precursors=[Precursor(mz=float(np.float32(mono[p]) / 2 + PROTON),
+                                  charge=2)],
+            masses=masses[o], intensities=intens[o],
+            mobilities=np.zeros(0, np.float32),
+            total_ion_current=np.float32(intens.sum()),
+        ))
+        pairs.append((p, q))
+    return out, np.array(pairs)
+
+
+def chimera_phase(torch, tsearch, pallas_stage1, db, times):
+    """Phase 17: chimeric search on 2,048 two-peptide spectra (precursor
+    +-1.5 Da, fragment +-10 ppm, report_psms 2) through ``score_stream``
+    on the card; the stage-1 counter is set to 0 just before and must be
+    > 0 after. Prints the share of spectra whose first PSM is the first
+    peptide, whose second is the second and whose two PSMs are the two
+    peptides (which must be over half), the rate and the host's
+    peak-removal seconds; 32 spectra on the card and on the CPU must give
+    equal FeatureTable columns."""
+    params = tsearch.SearchParams(
+        precursor_tol=tsearch.Tolerance(*BANDED_PREC),
+        fragment_tol=tsearch.Tolerance("ppm", -10.0, 10.0),
+        chimera=True, report_psms=2,
+    )
+    with Phase("17_chimera", times):
+        spectra, pairs = chimeric_spectra(db, CHIMERA_SPECTRA)
+        scorer = tsearch.Scorer(db, params)
+        removal = []
+        real_rm = scorer._remove_matched
+
+        def timed_rm(*a):
+            t = time.perf_counter()
+            real_rm(*a)
+            removal.append(time.perf_counter() - t)
+
+        scorer._remove_matched = timed_rm
+        pallas_stage1.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        t = list(scorer.score_stream([spectra]))[0]
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = pallas_stage1.launches
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        assert launches > 0, "chimera: stage1_counts not launched"
+        c = t.columns
+        si, rank, pep = c["spec_idx"], c["rank"], c["peptide_idx"]
+        assert set(np.unique(rank)) <= {1, 2} and (rank == 2).any()
+        n = len(spectra)
+
+        def found(r, col):
+            """Spectra whose rank-r PSM is their pair's peptide ``col``."""
+            h = np.zeros(n, bool)
+            m = rank == r
+            h[si[m]] = pep[m] == pairs[si[m], col]
+            return h
+
+        h1, h2 = found(1, 0), found(2, 1)
+        both = float(((h1 & h2) | (found(1, 1) & found(2, 0))).mean())
+        first, second = float(h1.mean()), float(h2.mean())
+        log(f"# chimera: {n} spectra in {wall_s:.3f} s = {n / wall_s:.1f} "
+            f"spectra/s; {len(t)} PSMs; the first peptide at rank 1 in "
+            f"{first:.3f}, the second peptide at rank 2 in {second:.3f}, "
+            f"both peptides found in {both:.3f} of the spectra; host "
+            f"_remove_matched {sum(removal):.2f} s over {len(removal)} PSMs; "
+            f"stage1_counts launches {launches}; peak device memory "
+            f"{peak_gib:.2f} GiB")
+        assert both > 0.5, (first, second, both)
+        sub = spectra[:32]
+        t_gpu = tsearch.Scorer(db, params).score_table(sub)
+        t_cpu = tsearch.Scorer(db, params, device="cpu").score_table(sub)
+        assert_tables_equal(t_gpu, t_cpu, "chimera card vs CPU")
+        log(f"# chimera card vs CPU: {len(t_cpu)} PSMs of {len(sub)} "
+            f"spectra, all {len(t_cpu.columns)} FeatureTable columns equal")
+    return dict(spectra=len(spectra), wall_s=wall_s,
+                spectra_per_s=len(spectra) / wall_s, psms=len(t),
+                first_share=first, second_share=second, both_share=both,
+                remove_matched_s=sum(removal), launches=launches,
+                peak_device_gib=peak_gib)
+
+
+def write_mzml_scans(path, scans):
+    """MS1 and MS2 scans (dicts of level, rt, mz, int and, for MS2,
+    prec_mz and charge) as an mzML file."""
+    with open(path, "w") as f:
+        f.write('<?xml version="1.0"?><mzML><run><spectrumList>')
+        for i, s in enumerate(scans):
+            prec = "" if s["level"] == 1 else (
+                "<precursorList><precursor><selectedIonList><selectedIon>"
+                f'<cvParam accession="MS:1000744" value="{float(s["prec_mz"])!r}"/>'
+                f'<cvParam accession="MS:1000041" value="{s["charge"]}"/>'
+                "</selectedIon></selectedIonList></precursor>"
+                "</precursorList>")
+            f.write(
+                f'<spectrum id="scan={i + 1}">'
+                f'<cvParam accession="MS:1000511" value="{s["level"]}"/>'
+                '<cvParam accession="MS:1000127" value=""/>'
+                '<cvParam accession="MS:1000285" '
+                f'value="{float(s["int"].sum())}"/>'
+                "<scanList><scan>"
+                f'<cvParam accession="MS:1000016" value="{float(s["rt"])!r}" '
+                'unitAccession="UO:0000031"/></scan></scanList>' + prec
+                + "<binaryDataArrayList>"
+                '<binaryDataArray><cvParam accession="MS:1000523" value=""/>'
+                '<cvParam accession="MS:1000574" value=""/>'
+                '<cvParam accession="MS:1000514" value=""/>'
+                f"<binary>{_enc(s['mz'], np.float64)}</binary>"
+                "</binaryDataArray>"
+                '<binaryDataArray><cvParam accession="MS:1000521" value=""/>'
+                '<cvParam accession="MS:1000574" value=""/>'
+                '<cvParam accession="MS:1000515" value=""/>'
+                f"<binary>{_enc(s['int'], np.float32)}</binary>"
+                "</binaryDataArray></binaryDataArrayList></spectrum>"
+            )
+        f.write("</spectrumList></run></mzML>")
+
+
+def lfq_files(db, tmp, tag, n_ms2, n_ms1, seed):
+    """Two mzML files for label-free quant. MS2 scans come from n_ms2 / 2
+    target peptides (two scans each, at their elution apex): 70% of their
+    singly charged b/y ions and 20 noise peaks, precursor charge 2. MS1
+    scans, one every 0.05 min, carry each eluting peptide's charge-2
+    isotope envelope (three peaks) over a Gaussian elution profile
+    (sigma 0.1 min) beside 10 noise peaks. The second file's retention
+    times are shifted by 0.15 min."""
+    from sage_tpu_torch.chem.mass import NEUTRON, PROTON
+
+    b, y = db.table.ladders()
+    rng = np.random.default_rng(seed)
+    cand = np.flatnonzero(~db.table.decoy & (db.table.lens >= 8))
+    peps = rng.choice(cand, n_ms2 // 2, replace=False)
+    T = 0.05 * n_ms1
+    apex = rng.uniform(0.5, T - 0.5, peps.size)
+    amp = rng.uniform(1e5, 1e7, peps.size)
+    env = np.array([1.0, 0.62, 0.24])
+    mono = db.table.mono.astype(np.float64)
+    paths = []
+    for f, shift in enumerate((0.0, 0.15)):
+        frng = np.random.default_rng(seed + 1 + f)
+        scans = []
+        for i in range(n_ms2):
+            j = i % peps.size
+            p = int(peps[j])
+            k = int(db.table.lens[p]) - 1
+            ions = np.concatenate([b[p, :k], y[p, :k]]).astype(np.float64)
+            ions = ions[frng.random(ions.size) < 0.7] + PROTON
+            mz = np.sort(np.concatenate([ions, frng.uniform(150.0, 1800.0,
+                                                             20)]))
+            scans.append({"level": 2,
+                          "rt": apex[j] + shift + frng.normal(0, 0.02),
+                          "prec_mz": mono[p] / 2 + PROTON, "charge": 2,
+                          "mz": mz, "int": frng.uniform(1e3, 1e6, mz.size)})
+        for k in range(n_ms1):
+            rt = T * (k + 0.5) / n_ms1
+            near = np.flatnonzero(np.abs(rt - apex - shift) < 0.4)
+            mz = [frng.uniform(350.0, 1500.0, 10)]
+            it = [frng.uniform(1e2, 1e3, 10)]
+            for j in near:
+                h = amp[j] * np.exp(-0.5 * ((rt - apex[j] - shift) / 0.1) ** 2)
+                mz.append((mono[peps[j]] + NEUTRON * np.arange(3)) / 2
+                          + PROTON)
+                it.append(h * env * frng.uniform(0.97, 1.03, 3))
+            mz, it = np.concatenate(mz), np.concatenate(it)
+            o = np.argsort(mz)
+            scans.append({"level": 1, "rt": rt, "mz": mz[o], "int": it[o]})
+        scans.sort(key=lambda s: s["rt"])
+        path = os.path.join(tmp, f"{tag}{f}.mzML")
+        write_mzml_scans(path, scans)
+        paths.append(path)
+    return paths
+
+
+def lfq_phase(torch, pallas_stage1, tmp, times):
+    """Phase 18: label-free quant and the HTML report through the Runner.
+    (a) ``python -m sage_tpu_torch`` on the card and
+    ``Runner(..., device="cpu")`` on two files of :func:`lfq_files` (512
+    MS2 and 128 MS1 scans each) against a 300-protein FASTA, with
+    ``quant.lfq``, ``write_report`` and chimeric search on: results.sage.tsv,
+    lfq.tsv and sage.report.html (each run's output directory replaced
+    by a placeholder) must be byte-equal, and lfq.tsv must hold target
+    MS1 peaks at 5% FDR. (b) The Runner in this process on the card, on a
+    6,000-protein FASTA (a yeast-size proteome) and two files of 4,096
+    MS2 and 1,024 MS1 scans: the whole run's, the quant's and the
+    report's seconds."""
+    from sage_tpu_torch.bench_baseline import synth_fasta
+    from sage_tpu_torch.chem.fasta import Fasta
+    from sage_tpu_torch.pipeline import report as treport
+    from sage_tpu_torch.pipeline.input import build_search
+    from sage_tpu_torch.pipeline.runner import Runner
+
+    def setup(n_prot, tag, **extra):
+        """The FASTA and the config; the mzML files (written later, from
+        the database) go to ``tag``0.mzML and ``tag``1.mzML."""
+        fasta = os.path.join(tmp, f"{tag}.fasta")
+        with open(fasta, "w") as f:
+            f.write(synth_fasta(n_prot, seed=5))
+        paths = [os.path.join(tmp, f"{tag}{i}.mzML") for i in (0, 1)]
+        return search_config(fasta, paths, quant={"lfq": True},
+                             write_report=True, **extra)
+
+    names = ("results.sage.tsv", "lfq.tsv", "sage.report.html")
+    with Phase("18a_lfq_report_cli", times):
+        n_prot, n_ms2, n_ms1 = LFQ_SMALL
+        cfg = setup(n_prot, "lfq_small", chimera=True, report_psms=2)
+        dbp = build_search(json.loads(json.dumps(cfg)),
+                           output_directory=tmp).database
+        with open(cfg["database"]["fasta"]) as f:
+            db = dbp.build(Fasta.parse(f.read(), dbp.decoy_tag,
+                                       dbp.generate_decoys))
+        lfq_files(db, tmp, "lfq_small", n_ms2, n_ms1, seed=23)
+        cfg_path = os.path.join(tmp, "lfq.json")
+        with open(cfg_path, "w") as f:
+            json.dump(cfg, f)
+        root = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            [root] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                      if p])
+        outs = {"card": os.path.join(tmp, "lfq_card"),
+                "cpu": os.path.join(tmp, "lfq_cpu")}
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "sage_tpu_torch", cfg_path, "-o",
+             outs["card"]],
+            cwd=root, env=env, capture_output=True, text=True, timeout=600,
+        )
+        cli_s = time.perf_counter() - t0
+        if r.returncode != 0:
+            log(r.stdout[-4000:])
+            log(r.stderr[-4000:])
+        assert r.returncode == 0, f"the CLI exited {r.returncode}"
+        t0 = time.perf_counter()
+        Runner(build_search(json.loads(json.dumps(cfg)),
+                            output_directory=outs["cpu"]), device="cpu").run()
+        cpu_s = time.perf_counter() - t0
+        files = {}
+        for k, d in outs.items():
+            files[k] = []
+            for n in names:
+                with open(os.path.join(d, n), "rb") as f:
+                    files[k].append(f.read().replace(d.encode(), b"OUTDIR"))
+        for n, a, b in zip(names, files["card"], files["cpu"]):
+            assert a == b, f"{n}: card and CPU differ"
+        rows = files["card"][1].decode().splitlines()
+        qcol = rows[0].split("\t").index("q_value")
+        small5 = sum(float(r.split("\t")[qcol]) <= 0.05 for r in rows[1:])
+        log(f"# LFQ via the CLI on the card: exit 0 in {cli_s:.1f} s; "
+            f"results.sage.tsv, lfq.tsv ({len(rows) - 1} target precursors, "
+            f"{small5} at 5% FDR) and sage.report.html "
+            f"({len(files['card'][2])} bytes) byte-equal to the CPU Runner's "
+            f"(CPU run {cpu_s:.1f} s)")
+        assert small5 > 0, "no target MS1 peak at 5% FDR"
+
+    with Phase("18b_lfq_report_timing", times):
+        n_prot, n_ms2, n_ms1 = LFQ_LARGE
+        cfg = setup(n_prot, "lfq_large")
+        report_s = []
+
+        def timed_render(*a, real=treport.render_report, **k):
+            t = time.perf_counter()
+            out = real(*a, **k)
+            report_s.append(time.perf_counter() - t)
+            return out
+
+        runner = Runner(build_search(cfg, output_directory=os.path.join(
+            tmp, "lfq_large_out")))
+        db = runner.database
+        lfq_files(db, tmp, "lfq_large", n_ms2, n_ms1, seed=23)
+        pallas_stage1.launches = 0
+        treport.render_report, real = timed_render, treport.render_report
+        try:
+            t0 = time.perf_counter()
+            result = runner.run()
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+        finally:
+            treport.render_report = real
+        ph = result["phases"]
+        areas = result["lfq"]
+        peaks5 = sum(1 for (_k, dec), (pk, _a) in areas.items()
+                     if not dec and pk.q_value <= 0.05)
+        log(f"# LFQ at yeast size: {len(db)} peptides, 2 x ({n_ms2} MS2 + "
+            f"{n_ms1} MS1) scans; run() {run_s:.2f} s, quant_s {ph['quant_s']:.3f} s,"
+            f" report {sum(report_s):.3f} s, search_s {ph['search_s']:.3f} "
+            f"s; {result['q_spectrum']} PSMs at 1% FDR, {len(areas)} "
+            f"quantified precursors, {peaks5} target peaks at 5% FDR; "
+            f"stage1_counts launches {pallas_stage1.launches}; phases {ph}")
+        assert pallas_stage1.launches > 0 and report_s and peaks5 > 0
+    return dict(cli_s=cli_s, cpu_runner_s=cpu_s, small_peaks_5pct=small5,
+                run_s=run_s, quant_s=ph["quant_s"], report_s=sum(report_s),
+                phases=ph, peptides=len(db), large_peaks_5pct=peaks5)
+
+
 def main():
     import torch
 
     # the package comes first: without it nothing below can run
     from sage_tpu_torch.ops import _cuda_build, pallas_sort, pallas_stage1
+    from sage_tpu_torch.ops import narrow_banded as tbanded
     from sage_tpu_torch.ops import open_search as topen
     from sage_tpu_torch.ops import search as tsearch
 
@@ -1216,19 +1947,57 @@ def main():
         torch, tsearch, "14_two_dispatch_open", db, open_fused, "row_sort",
         (reset_sorts, lambda: pallas_sort.launches), times, open_search=True)
 
+    mods = {"search": tsearch, "banded": tbanded, "open": topen,
+            "sort": pallas_sort, "stage1": pallas_stage1}
+    banded = banded_phase(torch, mods, db, spectra, times,
+                          "15_banded", [("ppm", -10.0, 10.0)],
+                          cpu_spectra=64)
+    lowres = banded_phase(torch, mods, db, spectra, times,
+                          "16_banded_lowres",
+                          [("da", -0.5, 0.5), ("da", -1.0, 1.0)], lowres=True)
+    crossover = crossover_phase(torch, mods, db, spectra, times)
+    chim = chimera_phase(torch, tsearch, pallas_stage1, db, times)
+    n_pep, n_frag = len(db), int(db.num_fragments)
+    del db, spectra
+    with tempfile.TemporaryDirectory() as tmp:
+        lfq_rec = lfq_phase(torch, pallas_stage1, tmp, times)
+
     # ---- 10. result lines
     k_stage1["launches_by_path"] = {
         "narrow_fused": k_stage1["launches"],
         "runner": runner_rec["stage1_launches"],
-        "two_dispatch_narrow": td_narrow["launches"]}
-    k_sort[0]["launches_by_path"] = {
-        "open_fused": k_sort[0]["launches"],
-        "two_dispatch_open": td_open["launches_all"]["row_sort"]}
-    k_sort[1]["launches_by_path"] = {
-        "open_fused": k_sort[1]["launches"],
-        "two_dispatch_open": td_open["launches_all"]["bitonic_merge"]}
+        "two_dispatch_narrow": td_narrow["launches"],
+        "chimera": chim["launches"],
+        "banded_reference": banded["reference_stage1_launches"]}
+    k_row = k_sort[0]
+    k_row["launches_by_path"] = {
+        "open_fused": k_row["launches"],
+        "two_dispatch_open": td_open["launches_all"]["row_sort"],
+        "banded": banded["launches"]["row_sort"],
+        "banded_lowres": lowres["launches"]["row_sort"]}
+    k_row.update({f"banded_{k}": banded["sort"][k]
+                  for k in ("ms", "plain_ms", "library_ms", "bound_ms")})
+    # the merge kernel's main path is the low-resolution banded batch (rows
+    # past 2^15 keys); the open path's synthetic rows of 2^16 keys and
+    # phase 7's lowered-limit run stay beside it
+    m16, k_open_merge = lowres["merge"], k_sort[1]
+    k_merge = {
+        "name": "bitonic_merge",
+        "launches": lowres["launches"]["bitonic_merge"], "max_abs_err": 0,
+        **{k: m16[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                               "bound_by", "blocks")},
+        "bound_share": m16["bound_ms"] / m16["ms"],
+        "open_rows_2e16_ms": k_open_merge["ms"],
+        "open_rows_2e16_bound_ms": k_open_merge["bound_ms"],
+        "forced_launches": k_open_merge["forced_launches"],
+        "forced_ms": k_open_merge["forced_ms"],
+        "launches_by_path": {
+            "banded_lowres": lowres["launches"]["bitonic_merge"],
+            "open_fused": k_open_merge["launches"],
+            "two_dispatch_open": td_open["launches_all"]["bitonic_merge"]},
+    }
     kernels = {"kernels": []}
-    for k in [k_stage1] + k_sort:
+    for k in (k_stage1, k_row, k_merge):
         src, replaces = KERNELS[k["name"]]
         kernels["kernels"].append({
             "name": k["name"], "route": "cuda", "source": src,
@@ -1237,11 +2006,13 @@ def main():
         })
     record = {
         "device": kind, "nvidia_smi": smi, "proteins": PROTEINS,
-        "peptides": len(db), "fragments": int(db.num_fragments),
+        "peptides": n_pep, "fragments": n_frag,
         "kernel_build_s": build_s, "phase_s": times, "runner": runner_rec,
         "narrow": narrow, "open": open_rec, "cli": cli_rec,
         "two_dispatch_narrow": td_narrow, "two_dispatch_open": td_open,
-        **kernels,
+        "banded": banded, "banded_lowres": lowres, "crossover": crossover,
+        "chimera": chim,
+        "lfq": lfq_rec, **kernels,
     }
     log("# record: " + json.dumps(record, default=str))
     print(json.dumps(kernels), flush=True)

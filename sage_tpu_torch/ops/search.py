@@ -29,8 +29,13 @@ host scalar is computed as a reciprocal multiply), and strictly
 sequential sums. Integer fields that the JAX package packs as int32 stay
 int32.
 
-Regimes that are not ported yet raise ``NotImplementedError``: chimeric
-search (ROADMAP Queue 1 item 9) and the banded narrow stage 1 (item 8).
+Narrow windows of 16384 candidates or more (with the open threshold
+raised) and ppm fragments, or any batch under ``SAGE_TPU_NARROW_BANDED=1``,
+take the peak-major banded stage 1 (``ops/narrow_banded.py``: a device
+binary search over a (band, m/z)-sorted fragment index, then the open
+search's count core). Chimeric search re-scores
+each spectrum in rounds with the matched peaks of its best PSM removed
+(``_score_chimera``, ``chimera_rounds``).
 """
 
 from __future__ import annotations
@@ -62,6 +67,7 @@ from .open_search import (
     covered_bands,
     spectrum_window_union,
 )
+from .narrow_banded import NarrowBanded
 from .pallas_stage1 import stage1_counts
 
 log = logging.getLogger("sage_tpu_torch")
@@ -641,10 +647,6 @@ class Scorer:
                     "device='cpu' to run the plain versions on the CPU"
                 )
             device = "cuda"
-        if params.chimera:
-            raise NotImplementedError(
-                "chimera=True is not ported yet (ROADMAP Queue 1 item 9)"
-            )
         self.device = torch.device(device)
         self.db = db
         self.params = params
@@ -668,6 +670,7 @@ class Scorer:
         self._plan_sticky: Dict[Tuple[int, int], tuple] = {}
         self._psm_counter = 1
         self._open: Optional[OpenSearcher] = None
+        self._nb: Optional[NarrowBanded] = None
         self.fused_reruns = 0
         self.last_plan: Optional[dict] = None
 
@@ -715,14 +718,31 @@ class Scorer:
             )
         return self._open
 
-    def _narrow_banded_gate(self, W: int) -> bool:
-        """The JAX package's default gate for its peak-major banded stage
-        1: wide windows on a large fragment index."""
-        return (
-            self.db.fragment_mz_flat is not None
-            and W >= 4096
+    def _narrow_banded_maybe(self, W: int) -> Optional[NarrowBanded]:
+        """The peak-major banded stage 1 (ops/narrow_banded.py).
+        ``SAGE_TPU_NARROW_BANDED=0`` turns it off and ``=1`` forces it.
+        Otherwise it is taken where it beat the candidate-major stage 1 on
+        the H100 (``chip_smoke.py`` phase 19, PERF.md): windows of
+        W >= 16384 candidates with a ppm fragment tolerance no wider than
+        +-10 ppm, on an index of 2^19 fragments or more. Such windows stay
+        narrow only when ``SAGE_TPU_OPEN_THRESHOLD`` is raised above its
+        8192. At W <= 8192, and with +-0.5 Da fragments at every W, it was
+        no faster. The JAX package's gate (W >= 4096 on 2^19 fragments)
+        is its TPU tuning."""
+        import os
+
+        env = os.environ.get("SAGE_TPU_NARROW_BANDED", "")
+        if env == "0" or self.db.fragment_mz_flat is None:
+            return None
+        ft = self.params.fragment_tol
+        if env != "1" and not (
+            W >= 16384 and ft.kind == "ppm" and ft.hi - ft.lo <= 20.0
             and self.db.num_fragments >= (1 << 19)
-        )
+        ):
+            return None
+        if self._nb is None:
+            self._nb = NarrowBanded(self.db, self.K, device=self.device)
+        return self._nb
 
     # ------------------------------------------------------------------
     # Host orchestration
@@ -851,6 +871,8 @@ class Scorer:
         (report_psms per spectrum), reference score_standard semantics."""
         if not spectra:
             return FeatureTable.empty()
+        if self.params.chimera:
+            return self._score_chimera(spectra)
         masses, intens, Pk = self._pad_peaks(spectra)
         peaks_dev = self._peaks_device(masses, intens)
         rows = self._expand_rows(spectra)
@@ -897,7 +919,12 @@ class Scorer:
         """Pipelined scoring over an iterable of spectrum batches: up to
         two batches in flight, so the device runs batch i+1 while the
         host fetches and finalizes batch i. Yields one FeatureTable per
-        input batch, in order."""
+        input batch, in order. Chimeric search scores one batch at a
+        time: each of its rounds depends on the last one's PSMs."""
+        if self.params.chimera:
+            for batch in batches:
+                yield self.score_table(batch)
+            return
 
         def admit(batch):
             masses, intens, Pk = self._pad_peaks(batch)
@@ -1255,12 +1282,7 @@ class Scorer:
         max_win = int((rows["i1"] - rows["i0"]).max())
         W = min(next_power_of_two(max(max_win, 8)), self.tables.P_pad)
         open_regime = self._open_path(W)
-        if not open_regime and self._narrow_banded_gate(W):
-            raise NotImplementedError(
-                f"narrow_banded stage 1 (window {W} >= 4096 on "
-                f"{self.db.num_fragments} fragments) is not ported yet "
-                "(ROADMAP Queue 1 item 8)"
-            )
+        nb = None if open_regime else self._narrow_banded_maybe(W)
 
         S_pad = _pad_count(n_spec)
         si = rows["si"]
@@ -1288,6 +1310,13 @@ class Scorer:
                 return None
             plan, ints, G_eff, open_segs, open_sticky = planned
             Ksel = min(self._ksel_open(), self.K)
+        elif nb is not None:
+            # the banded stage 1: one pseudo-segment over every row in
+            # original order
+            plan = (("banded", n_rows),)
+            ints = _open_ints(n_rows, S_pad, rows, np.arange(n_rows), maxz,
+                              slot)
+            Ksel = min(self._ksel(), self.K)
         else:
             plan, ints, segs = self._narrow_plan(rows, S_pad, slot, maxz, Zb,
                                                  W)
@@ -1307,9 +1336,22 @@ class Scorer:
         # a device-planned open batch's overflow statistics ride the tail row
         tail_extra = open_sticky.pop("stats") if open_sticky else None
         seg_outs = []
+        nb_F = None
         if open_regime:
             for seg in open_segs:
                 seg_outs.append(self._open_count(seg, Zb))
+        elif nb is not None:
+            # the largest per-spectrum entry count rides the tail row
+            packed_b, tail_extra, nb_F, nbcov = nb.dispatch(
+                peaks_dev, rows, ints_dev, n_rows, Zb,
+                self.params.fragment_tol, Pk,
+            )
+            seg_outs.append(packed_b)
+            self.last_plan = {
+                "banded": True, "W": W, "nbcov": nbcov, "F": nb_F,
+                "n_bands": nb.n_bands, "band_w": nb.band_w, "G_eff": G_eff,
+                "Zb": Zb, "S_pad": S_pad, "Ksel": Ksel,
+            }
         else:
             off = 0
             for (Wb, Lcb, Rb, Zc), idx_p in zip(plan, segs):
@@ -1348,6 +1390,7 @@ class Scorer:
             "fused": small, "items7": items7, "meta": meta,
             "n_rows": n_rows, "n_spec": n_spec,
             "Ksel": Ksel, "S_pad": S_pad, "open_sticky": open_sticky,
+            "nb_F": nb_F,
         }
 
     def _narrow_plan(self, rows, S_pad, slot, maxz, Zb, W):
@@ -1662,10 +1705,23 @@ class Scorer:
         Returns None when a device-planned open batch overflowed its
         sticky shapes (its entries may have been truncated, so the
         overflowed classes grow, ``d["overflowed"]`` is set and the caller
-        reruns the batch), and when a per-spectrum sum reached 2^24 (the
-        caller takes the two-dispatch path)."""
+        reruns the batch); and, for the caller to take the two-dispatch
+        path, when a banded batch's entries reached its capacity F (which
+        grows first) and when a per-spectrum sum reached 2^24."""
         if packed is None:
             packed = d["fused"].cpu().numpy()
+        if d.get("nb_F") is not None:
+            totmax = int(packed[-1, 1])
+            if totmax >= d["nb_F"]:
+                # entries past F were dropped: grow F, redo the batch
+                self._nb.grow_F(totmax)
+                self.fused_reruns += 1
+                log.warning(
+                    "banded narrow stage-1 entry capacity %d exceeded (max "
+                    "%d); growing and re-running the batch via the "
+                    "two-dispatch path", d["nb_F"], totmax,
+                )
+                return None
         ost = d.get("open_sticky")
         if ost is not None:
             # the device reported each size class's true max per-(spectrum,
@@ -2018,21 +2074,33 @@ class Scorer:
         }
 
     def _features_table(self, spectra, prelim, masses, intens, Pk,
-                        peaks_dev) -> FeatureTable:
+                        peaks_dev, report_psms=None, removed_masks=None,
+                        tic_override=None) -> FeatureTable:
         """Stage 2 and the vectorized host feature assembly
-        (scoring.rs:478-595, 675-767)."""
-        d2 = self._stage2_dispatch(prelim, intens, peaks_dev)
-        return self._stage2_finalize(spectra, prelim, d2,
-                                     self.params.report_psms, masses, Pk)
+        (scoring.rs:478-595, 675-767). A chimera round passes the removed
+        peaks, its report depth and its recomputed TICs."""
+        d2 = self._stage2_dispatch(prelim, intens, peaks_dev, masses=masses,
+                                   removed_masks=removed_masks)
+        if report_psms is None:
+            report_psms = self.params.report_psms
+        return self._stage2_finalize(spectra, prelim, d2, report_psms,
+                                     masses, Pk, tic_override=tic_override)
 
-    def _stage2_dispatch(self, prelim, intens, peaks_dev):
+    def _stage2_dispatch(self, prelim, intens, peaks_dev, masses=None,
+                         removed_masks=None):
         """Launch the full rescore of every merged candidate: one item
-        per (spectrum, peptide, charge)."""
+        per (spectrum, peptide, charge). With ``removed_masks`` (a chimera
+        round) the removed peaks get intensity -1 and the packed peaks are
+        uploaded again, to this Scorer's device."""
         p = self.params
         spec_i = prelim["cand_spec"]
         nI = spec_i.shape[0]
+        if removed_masks is not None:
+            intens = np.where(removed_masks, -1.0, intens).astype(np.float32)
         if nI == 0:
             return {"out_dev": None, "nI": 0, "use_int": intens}
+        if removed_masks is not None:
+            peaks_dev = self._peaks_device(masses, intens)
         chg = prelim["cand_charge"]
         ints = np.zeros((3, nI), np.int32)  # spectrum, peptide, maxz
         ints[0] = spec_i
@@ -2068,7 +2136,7 @@ class Scorer:
         )[:, 0]
 
     def _stage2_finalize(self, spectra, prelim, d2, report_psms, masses,
-                         Pk) -> FeatureTable:
+                         Pk, tic_override=None) -> FeatureTable:
         """Exact f64 hyperscores of the rescored items, the per-spectrum
         ranking by (hyperscore desc, merge order), and the reported
         rows' columns."""
@@ -2132,7 +2200,8 @@ class Scorer:
             delta_next=delta_next[rep], delta_best=delta_best[rep],
             spec_matched=prelim["spec_matched"],
             spec_scored=prelim["spec_scored"],
-            tic_override=None, masses=masses, use_int=d2["use_int"], Pk=Pk,
+            tic_override=tic_override, masses=masses, use_int=d2["use_int"],
+            Pk=Pk,
         )
 
     def _row_buckets(self, rows, n_rows, W):
@@ -2356,6 +2425,117 @@ class Scorer:
                     frags.fragment_ordinals.append(int(ordinal))
                     frags.intensities.append(float(sv[pk]))
         return frags
+
+    # ------------------------------------------------------------------
+    # Chimeric search (scoring.rs:598-672)
+    # ------------------------------------------------------------------
+
+    def _score_chimera(self, spectra) -> FeatureTable:
+        """Stage 1 once, then rounds of the full rescore, each on the
+        peaks that the earlier rounds' PSMs left (``chimera_rounds``)."""
+        masses, intens, Pk = self._pad_peaks(spectra)
+        prelim = self._preliminary(
+            spectra, masses=masses,
+            peaks_dev=self._peaks_device(masses, intens),
+        )
+
+        def features_table(removed, tic):
+            return self._features_table(
+                spectra, prelim, masses, intens, Pk, None, report_psms=1,
+                removed_masks=removed, tic_override=tic,
+            )
+
+        return chimera_rounds(self, spectra, masses, intens, features_table)
+
+    def _remove_matched(self, si, pep_i, charge, masses, intens, removed):
+        """scoring.rs:598-644: mark the peaks that the PSM's complete
+        theoretical ladder (all fragment charges) matches as removed."""
+        from ..spectrum.processor import select_most_intense_peak
+
+        db = self.db
+        b_host = _host_ladders(db, [pep_i], self.series)
+        n_ions = len(db.peptides[pep_i].sequence) - 1
+        mzmax = max_fragment_charge(self.params.max_fragment_charge, charge)
+        valid = np.isfinite(masses[si]) & ~removed[si]
+        vm = masses[si][valid]
+        vi = intens[si][valid]
+        vidx = np.nonzero(valid)[0]
+        to_remove = set()
+        for s in range(self.n_series):
+            for l in range(n_ions):
+                for z in range(1, mzmax):
+                    center = F32(b_host[0, s, l] / F32(z))
+                    j = select_most_intense_peak(vm, vi, center,
+                                                 self.params.fragment_tol)
+                    if j is not None:
+                        to_remove.add((float(vm[j]), float(vi[j])))
+        for j0, gi in enumerate(vidx):
+            if (float(vm[j0]), float(vi[j0])) in to_remove:
+                removed[si][gi] = True
+
+
+def chimera_rounds(host, spectra, masses, intens, features_table):
+    """The chimera round loop (scoring.rs:598-672). ``features_table(removed,
+    tic)`` returns one round's FeatureTable; ``host`` supplies the
+    parameters and the exact host-side peak removal (``_remove_matched``).
+    Each round keeps the best new PSM of every spectrum still active,
+    removes its matched peaks, recomputes the spectrum's TIC with the
+    reference's sequential f32 sum, and runs again until report_psms
+    rounds or a round that finds no new PSM."""
+    from ..native import seq_f32_sum_rows
+
+    p = host.params
+    removed = np.zeros_like(intens, dtype=bool)
+    tic = np.array([s.total_ion_current for s in spectra], dtype=np.float32)
+    rounds: List[FeatureTable] = []
+    n_hits = np.zeros(len(spectra), dtype=np.int32)
+    active = set(range(len(spectra)))
+    for _ in range(p.report_psms):
+        if not active:
+            break
+        t = features_table(removed, tic)
+        keep_rows = []
+        newly = set()
+        for i in range(len(t)):
+            si = int(t.columns["spec_idx"][i])
+            if si not in active:
+                continue
+            keep_rows.append(i)
+            n_hits[si] += 1
+            t.columns["rank"][i] = n_hits[si]
+            newly.add(si)
+            host._remove_matched(
+                si, int(t.columns["peptide_idx"][i]),
+                int(t.columns["charge"][i]), masses, intens, removed,
+            )
+            tic[si] = seq_f32_sum_rows(
+                np.where(
+                    removed[si], 0.0,
+                    np.where(np.isfinite(masses[si]), intens[si], 0.0),
+                )[None, :],
+                np.array([intens.shape[1]], dtype=np.int32),
+            )[0]
+        if not keep_rows:
+            break
+        rounds.append(t.select(np.asarray(keep_rows, dtype=np.int64)))
+        active = {si for si in newly if n_hits[si] < p.report_psms}
+    if not rounds:
+        out = FeatureTable.empty()
+        out.spec_ids = [s.id for s in spectra]
+        return out
+    # every round shares the batch's spec_ids; concat would re-base
+    # spec_idx, so the rounds are merged by hand
+    merged = FeatureTable.empty(sum(len(t) for t in rounds))
+    off = 0
+    for t in rounds:
+        n = len(t)
+        for k in merged.columns:
+            merged.columns[k][off : off + n] = t.columns[k]
+        merged.protein_groups[off : off + n] = t.protein_groups
+        merged.fragments[off : off + n] = t.fragments
+        off += n
+    merged.spec_ids = rounds[0].spec_ids
+    return merged
 
 
 def _fill_rows(ints, sl, rows, idx, maxz, slot_vals):

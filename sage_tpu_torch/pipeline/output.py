@@ -1,6 +1,5 @@
 """Output writers: results.sage.tsv (43-column contract), matched
-fragments TSV, percolator .pin, tmt.tsv, results.json (the LFQ table
-waits for quant/lfq.py, ROADMAP Queue 1 item 10).
+fragments TSV, percolator .pin, tmt.tsv, lfq.tsv, results.json.
 
 Reference: crates/sage-cli/src/runner.rs:841-1240. Float formatting
 matches the reference's ryu shortest-roundtrip output: numpy's str() for
@@ -239,6 +238,34 @@ class OutputWriter:
                     q.spec_id,
                     f32s(q.ion_injection_time),
                 ] + [f32s(p) for p in q.peaks]
+                f.write("\t".join(row) + "\n")
+        return path
+
+    def write_lfq(self, areas, filenames: List[str]) -> str:
+        """lfq.tsv wide format (runner.rs:1182-1240). ``areas`` is a dict
+        {(precursor_id, decoy): (Peak, [intensities per file])}."""
+        path = self._path("lfq.tsv")
+        with open(path, "w") as f:
+            headers = [
+                "peptide", "charge", "proteins", "q_value", "score",
+                "spectral_angle",
+            ] + list(filenames)
+            f.write("\t".join(headers) + "\n")
+            for (pid, decoy), (peak, data) in areas.items():
+                if decoy:
+                    continue
+                if isinstance(pid, tuple):
+                    pix, charge = pid
+                else:
+                    pix, charge = pid, -1
+                row = [
+                    self._peptide(int(pix)),
+                    str(int(charge)),
+                    self._proteins(int(pix)),
+                    f32s(peak.q_value),
+                    f64s(peak.score),
+                    f64s(peak.spectral_angle),
+                ] + [f64s(x) for x in data]
                 f.write("\t".join(row) + "\n")
         return path
 

@@ -5,15 +5,14 @@ Reference: crates/sage-cli/src/runner.rs — Runner::new builds the
 database from FASTA (with optional prefilter), Runner::run batches mzML
 files, searches each batch, then runs RT alignment + RT/IM prediction,
 LDA rescoring, spectrum/peptide/protein/protein-group FDR, protein
-grouping, TMT quant, and writes every output artifact.
+grouping, TMT and label-free quant, and writes every output artifact.
 
 Counterpart of ``sage_tpu/pipeline/runner.py``: spectra are scored in
 large padded batches on one CUDA device (``ops/search.py``) and PSMs
 accumulate in a columnar FeatureTable. One process searches on one card.
 Regimes that are not ported yet raise ``NotImplementedError`` naming
 their ROADMAP item: multi-process and multi-device search (Queue 1 item
-12), label-free quant (item 10), parquet output and the HTML report
-(item 11).
+12), parquet output and Bruker .d input (item 11).
 """
 
 from __future__ import annotations
@@ -69,19 +68,9 @@ def _check_ported(p: Search) -> None:
             "multi-process search (SAGE_TPU_COORDINATOR / "
             "SAGE_TPU_DISTRIBUTED) is not ported yet (ROADMAP Queue 1 item 12)"
         )
-    if p.quant.lfq:
-        raise NotImplementedError(
-            "label-free quant (quant.lfq) is not ported yet (ROADMAP Queue 1 "
-            "item 10)"
-        )
     if p.parquet:
         raise NotImplementedError(
             "parquet output is not ported yet (ROADMAP Queue 1 item 11)"
-        )
-    if p.write_report:
-        raise NotImplementedError(
-            "the HTML report (write_report) is not ported yet (ROADMAP Queue "
-            "1 item 11)"
         )
 
 
@@ -108,7 +97,8 @@ class Runner:
         # kernel throughput and pipeline throughput is always attributed.
         self.phases: dict = {
             "db_build_s": 0.0, "read_s": 0.0, "process_s": 0.0,
-            "search_s": 0.0, "rt_ml_s": 0.0, "fdr_s": 0.0, "write_s": 0.0,
+            "search_s": 0.0, "rt_ml_s": 0.0, "fdr_s": 0.0,
+            "quant_s": 0.0, "write_s": 0.0,
         }
         self._phase_lock = threading.Lock()
         db_params = parameters.database
@@ -186,9 +176,10 @@ class Runner:
 
     def process_file(
         self, scorer: Scorer, path: str, file_id: int, spectra=None
-    ) -> Tuple[FeatureTable, list]:
+    ) -> Tuple[FeatureTable, list, list]:
         """Read, search and TMT-quantify one file (process_chunk,
-        runner.rs:365-375)."""
+        runner.rs:365-375); returns its PSMs, TMT quant and, for LFQ, its
+        MS1 spectra."""
         p = self.parameters
         t0 = time.monotonic()
         if spectra is None:
@@ -218,7 +209,9 @@ class Runner:
             quant = tmt_mod.quantify(
                 spectra, p.quant.tmt, Tolerance("ppm", -20.0, 20.0), level
             )
-        return features, quant
+
+        ms1 = [s for s in spectra if s.level == 1] if p.quant.lfq else []
+        return features, quant, ms1
 
     # ------------------------------------------------------------------
 
@@ -362,7 +355,7 @@ class Runner:
         scorer = self._make_scorer()
 
         work = list(enumerate(p.mzml_paths))
-        pieces = []  # (file_id, FeatureTable, tmt_quant)
+        pieces = []  # (file_id, FeatureTable, tmt_quant, ms1)
         # File-batch parallelism: up to `--batch-size` files are parsed/
         # processed concurrently on worker threads (main.rs:118-121's
         # default num_cpus/2, runner.rs:482-489) while the device searches
@@ -395,18 +388,22 @@ class Runner:
                     )
                 if spectra is None:
                     continue
-                feats, quant = self.process_file(
+                feats, quant, ms1 = self.process_file(
                     scorer, path, file_id, spectra=spectra
                 )
-                pieces.append((file_id, feats, quant))
-        all_quant = [q for _, _, quant in pieces for q in quant]
-        features = FeatureTable.concat([t for _, t, _ in pieces])
+                pieces.append((file_id, feats, quant, ms1))
+        all_quant = [q for _, _, quant, _ in pieces for q in quant]
+        all_ms1: List[ProcessedSpectrum] = [
+            m for _, _, _, ms1 in pieces for m in ms1
+        ]
+        features = FeatureTable.concat([t for _, t, _, _ in pieces])
         # Deterministic PSM ids in (file, batch, row) order (unlike the
         # reference's racy global counter, scoring.rs:163-166).
         features.columns["psm_id"][:] = np.arange(
             1, len(features) + 1, dtype=np.int64
         )
 
+        alignments = None
         t_rt = time.monotonic()
         if p.predict_rt:
             # Poisson is usually the best single feature; use it to get a
@@ -415,7 +412,9 @@ class Runner:
             features = features.select(order)
             q, _ = qvalue.spectrum_q_value(features.columns["label"])
             features.columns["spectrum_q"][:] = q
-            retention_alignment.global_alignment(features, len(p.mzml_paths))
+            alignments = retention_alignment.global_alignment(
+                features, len(p.mzml_paths)
+            )
             retention_model.predict(self.database, features)
             mobility_model.predict(self.database, features)
         t_fdr = time.monotonic()
@@ -434,6 +433,20 @@ class Runner:
         self._phase_add("fdr_s", time.monotonic() - t_fdr)
 
         filenames = [path.split("/")[-1] for path in p.mzml_paths]
+
+        areas = None
+        if p.quant.lfq and alignments is not None:
+            from ..quant import lfq as lfq_mod
+
+            log.info("performing LFQ")
+            t_q = time.monotonic()
+            feature_map = lfq_mod.build_feature_map(
+                p.quant.lfq_settings, p.precursor_charge, self.database, features
+            )
+            areas = feature_map.quantify(self.database, all_ms1, alignments)
+            q_precursor = lfq_mod.assign_precursor_q(areas)
+            self._phase_add("quant_s", time.monotonic() - t_q)
+            log.info("discovered %d target MS1 peaks at 5%% FDR", q_precursor)
 
         log.info(
             "discovered %d target peptide-spectrum matches at 1%% FDR", q_spectrum
@@ -457,8 +470,22 @@ class Runner:
             p.output_paths.append(
                 writer.write_tmt(all_quant, p.quant.tmt, filenames)
             )
+        if areas is not None:
+            p.output_paths.append(writer.write_lfq(areas, filenames))
         if p.write_pin:
             p.output_paths.append(writer.write_pin(features, filenames))
+        if p.write_report:
+            from .report import render_report
+
+            rp = os.path.join(p.output_directory, "sage.report.html")
+            with open(rp, "w") as f:
+                f.write(
+                    render_report(
+                        features, filenames, p.to_json_dict(), areas,
+                        version=p.version,
+                    )
+                )
+            p.output_paths.append(rp)
         p.output_paths.append(writer.write_results_json(p.to_json_dict()))
 
         self._phase_add("write_s", time.monotonic() - t_w)
@@ -475,7 +502,7 @@ class Runner:
             "q_peptide": q_peptide,
             "q_protein": q_protein,
             "q_protein_group": q_protein_group,
-            "lfq": None,
+            "lfq": areas,
             "run_time": run_time,
             "phases": phases,
         }

@@ -1,4 +1,3 @@
-"""Quantification: isobaric (TMT) reporter ions. Label-free quant
-(``quant/lfq.py``) is not ported yet (ROADMAP Queue 1 item 10)."""
+"""Quantification: isobaric (TMT) reporter ions and label-free (LFQ)."""
 
 from . import tmt  # noqa: F401

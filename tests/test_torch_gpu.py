@@ -1,7 +1,7 @@
 """The port on a CUDA device: the stage-1, row-sort and merge kernels
-against their plain versions on the card, and the whole narrow and open
-paths (fused and two-dispatch) and the Runner on the card against the
-CPU.
+against their plain versions on the card, and the whole narrow, banded,
+chimeric and open paths (fused and two-dispatch) and the Runner on the
+card against the CPU.
 Every test here needs a card; where there is none they skip.
 
 Run on a machine with a card (the variable keeps conftest.py from
@@ -9,6 +9,7 @@ importing jax, which that machine may not have):
     SAGE_TPU_TEST_PLATFORM=cuda python -m pytest tests/test_torch_gpu.py -q -m gpu
 """
 
+import dataclasses
 import json
 
 import numpy as np
@@ -253,6 +254,58 @@ def test_two_dispatch_card_matches_cpu(cuda, small, monkeypatch, regime):
         for k in b.columns:
             np.testing.assert_array_equal(a.columns[k], b.columns[k],
                                           err_msg=f"column {k}")
+
+
+def _assert_same(a_tables, b_tables):
+    for a, b in zip(a_tables, b_tables):
+        assert len(a) == len(b) > 0
+        for k in b.columns:
+            np.testing.assert_array_equal(a.columns[k], b.columns[k],
+                                          err_msg=f"column {k}")
+
+
+@pytest.mark.parametrize("F", [None, 40000])
+def test_banded_card_matches_cpu(cuda, small, monkeypatch, F):
+    """The banded narrow stage 1 (forced, bands of 64 peptides) on the
+    card: the row-sort kernel launched and, with F = 40,000 entries a
+    spectrum (rows past 2^15 keys), the merge kernel; every FeatureTable
+    column equal to the CPU's. A first batch learns F."""
+    db, spectra = small
+    monkeypatch.setenv("SAGE_TPU_NARROW_BANDED", "1")
+    monkeypatch.setenv("SAGE_TPU_NARROW_BAND_W", "64")
+    params = _params(("ppm", -10.0, 10.0))
+    tables = {}
+    for dev in (cuda, torch.device("cpu")):
+        s = Scorer(db, params, device=dev)
+        if F:
+            s._narrow_banded_maybe(4096)._F = F
+        s.score_table(spectra[192:])
+        s._psm_counter = 1
+        before = dict(pallas_sort.launches)
+        tables[dev.type] = list(s.score_stream([spectra[:96],
+                                                spectra[96:192]]))
+        assert s.last_plan.get("banded") and s.last_plan["F"] >= (F or 0)
+        grew = {k: pallas_sort.launches[k] - before[k] for k in before}
+        if dev.type == "cuda":
+            assert grew["row_sort"] > 0
+            assert (grew["bitonic_merge"] > 0) == bool(F)
+        else:
+            assert grew == {"row_sort": 0, "bitonic_merge": 0}
+    _assert_same(tables["cuda"], tables["cpu"])
+
+
+def test_chimera_card_matches_cpu(cuda, small):
+    """Chimeric search (report_psms 2) on the card, the stage-1 kernel
+    launched and the peaks uploaded again each round: every FeatureTable
+    column equal to the CPU's."""
+    db, spectra = small
+    params = dataclasses.replace(_params(("ppm", -10.0, 10.0)), chimera=True)
+    before = pallas_stage1.launches
+    t_gpu = Scorer(db, params, device=cuda).score_table(spectra[:64])
+    assert pallas_stage1.launches > before
+    t_cpu = Scorer(db, params, device="cpu").score_table(spectra[:64])
+    assert (t_cpu.columns["rank"] == 2).any()
+    _assert_same([t_gpu], [t_cpu])
 
 
 def _write_mgf(path, spectra):

@@ -8,7 +8,6 @@ import subprocess
 import sys
 
 import jax  # noqa: F401  (conftest keeps JAX on the CPU)
-import numpy as np
 import pytest
 import torch
 
@@ -39,6 +38,9 @@ def test_imports_with_jax_and_sage_tpu_blocked():
         "import sage_tpu_torch.ops.pallas_stage1\n"
         "import sage_tpu_torch.ops.pallas_sort\n"
         "import sage_tpu_torch.ops.open_search\n"
+        "import sage_tpu_torch.ops.narrow_banded\n"
+        "import sage_tpu_torch.quant.lfq\n"
+        "import sage_tpu_torch.pipeline.report\n"
         "import sage_tpu_torch.bench_baseline\n"
         "import sage_tpu_torch.index.builder\n"
         "import sage_tpu_torch.pipeline.runner\n"
@@ -83,38 +85,19 @@ def test_scorer_without_device_raises_when_cuda_absent(monkeypatch):
         Scorer(object(), params)
 
 
-def _tiny_db():
-    from sage_tpu_torch.chem.fasta import Fasta
-    from sage_tpu_torch.index.builder import DatabaseParams
-
-    rng = np.random.default_rng(2)
-    aa = np.frombuffer(b"ACDEFGHIKLMNPQRSTVWY", dtype=np.uint8)
-    text = "\n".join(
-        f">sp|P{i}|P{i}_SYN s\n"
-        + aa[rng.integers(0, 20, size=120)].tobytes().decode()
-        for i in range(10)
-    )
-    params = DatabaseParams()
-    return params.build(Fasta.parse(text, params.decoy_tag, True))
-
-
-def _one_spectrum(db, charge=2):
-    from sage_tpu_torch.bench_baseline import synth_spectra
-
-    s = synth_spectra(db, 1, seed=3)[0]
-    s.precursors[0].charge = charge
-    return s
-
-
 # the Runner's regimes that are not ported yet, each with its ROADMAP item
 _RUNNER_REGIMES = {
-    "lfq": "Queue 1 item 10", "parquet": "Queue 1 item 11",
-    "write_report": "Queue 1 item 11", "bruker_d": "Queue 1 item 11",
+    "parquet": "Queue 1 item 11", "bruker_d": "Queue 1 item 11",
     "mesh_shape": "Queue 1 item 12", "distributed": "Queue 1 item 12",
 }
 
 
-def _runner_regime_raises(regime, tmp_path, monkeypatch):
+@pytest.mark.parametrize("regime", sorted(_RUNNER_REGIMES))
+def test_out_of_slice_regimes_raise(regime, monkeypatch, tmp_path):
+    """Each regime that is not ported yet raises NotImplementedError
+    naming its ROADMAP item; none falls back: the Runner's parquet
+    output, Bruker .d input, a mesh of more than one device and a
+    multi-process run."""
     from sage_tpu_torch.pipeline.input import build_search
     from sage_tpu_torch.pipeline.runner import Runner
 
@@ -125,9 +108,7 @@ def _runner_regime_raises(regime, tmp_path, monkeypatch):
            "fragment_tol": {"ppm": [-10, 10]},
            "mzml_paths": [str(tmp_path / "run.mzML")]}
     kw = {}
-    if regime == "lfq":
-        cfg["quant"] = {"lfq": True}
-    elif regime in ("parquet", "write_report"):
+    if regime == "parquet":
         kw[regime] = True
     elif regime == "bruker_d":
         (tmp_path / "run.d").mkdir()
@@ -140,38 +121,3 @@ def _runner_regime_raises(regime, tmp_path, monkeypatch):
     search = build_search(cfg, output_directory=str(tmp_path / "out"), **kw)
     with pytest.raises(NotImplementedError, match=_RUNNER_REGIMES[regime]):
         Runner(search, device="cpu").run()
-
-
-@pytest.mark.parametrize("regime", ["chimera", "banded"]
-                         + sorted(_RUNNER_REGIMES))
-def test_out_of_slice_regimes_raise(regime, monkeypatch, tmp_path):
-    """Each regime that is not ported yet raises NotImplementedError
-    naming its ROADMAP item; none falls back: chimeric search and the
-    banded narrow stage 1 in the Scorer, and the Runner's label-free
-    quant, parquet output, HTML report, Bruker .d input, a mesh of more
-    than one device and a multi-process run."""
-    import sage_tpu_torch.chem.mass as tmass
-    from sage_tpu_torch.ops.search import Scorer, SearchParams
-
-    if regime in _RUNNER_REGIMES:
-        _runner_regime_raises(regime, tmp_path, monkeypatch)
-        return
-    db = _tiny_db()
-    kw = {}
-    if regime == "chimera":
-        kw["chimera"] = True
-    params = SearchParams(
-        precursor_tol=tmass.Tolerance("da", -50.0, 50.0),
-        fragment_tol=tmass.Tolerance("ppm", -10.0, 10.0),
-        min_matched_peaks=1, **kw,
-    )
-    spec = [_one_spectrum(db)]
-    if regime == "chimera":
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-            Scorer(db, params, device="cpu")
-        return
-    scorer = Scorer(db, params, device="cpu")
-    monkeypatch.setenv("SAGE_TPU_OPEN_THRESHOLD", "999999999")
-    monkeypatch.setattr(Scorer, "_narrow_banded_gate", lambda self, W: True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        scorer.score_table(spec)

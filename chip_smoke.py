@@ -12,7 +12,7 @@ seconds):
 
 1. Device: the card's name and power limit; exits non-zero without CUDA.
 2. Build: the three kernel sources (csrc/stage1_counts.cu,
-   csrc/row_sort.cu, csrc/bitonic_merge.cu) with nvcc, side by side,
+   csrc/row_sort.cu, csrc/cluster_sort.cu) with nvcc, side by side,
    printing ptxas's registers / shared-memory / spill lines and the
    build time.
 11. Runner at full size (runs right after the build: its database is the
@@ -51,25 +51,29 @@ seconds):
    after one warm-up batch) through ``score_stream``. The sort kernels'
    counters are set to 0 just before and read just after; every batch
    must launch the row-sort kernel. Prints the bands, nbcov, the size
-   classes, F per segment, the device-planned batches and the reruns,
-   the wall rate and peak memory, and one batch's profile with named
-   ranges around the range probe, the count core and the sort.
-7. Merge kernel on the open path: one batch with the one-pass limit
-   lowered, so that every row takes the hierarchical sort; the merge
-   kernel must launch, and every FeatureTable column must equal the
-   default run's.
-8. Sort kernels against plain: each kernel against its plain version at
-   the open path's captured shapes and at random shapes up to 2^17 keys
-   a row, full-int32-range and all-equal rows among them; the outputs
-   must be bit-equal (and equal torch.sort). Timed with CUDA events
-   beside torch.sort and the card's bound, kernel, torch.sort, kernel
-   again, each shape with its share of the bound: the row-sort kernel at
-   a device-planned batch's shapes and at the host-planned warm-up
-   batch's, the merge kernel at the 2^15-key blocks the main path gives
-   it for rows past the one-pass limit and at phase 7's lowered-limit
-   blocks.
+   classes, F per segment, the device-planned batches and the overflow
+   reruns (``fused_reruns``), the wall rate and peak memory, and one
+   batch's profile with named ranges around the range probe, the count
+   core and the sort.
+7. Cluster kernel on the open path: one batch with the one-pass limit
+   lowered to 1024 keys, so that every row goes to the cluster kernel
+   (one launch a sort); it must launch, and every FeatureTable column
+   must equal the default run's.
+8. Sort kernels against plain: each kernel against its plain version and
+   torch.sort at the open path's captured shapes, at phase 7's rows, at
+   open rows of 2^16 keys shaped like phase 16's and at random shapes up
+   to 2^17 keys a row, full-int32-range and all-equal rows among them;
+   the outputs must be bit-equal. Timed with CUDA events beside
+   torch.sort and the card's bound, kernel, torch.sort, kernel again,
+   each shape with its share of the bound: the row-sort kernel at a
+   device-planned batch's shapes and at the host-planned warm-up
+   batch's, the cluster kernel at phase 7's rows and at the 2^16-key
+   rows (at its own cluster size and at 4 and 8 CTAs a row, with
+   cudaOccupancyMaxActiveClusters), beside the parent commit's whole
+   long-row sort (PARENT_LONG_SORT_MS).
 9. Open card against CPU: 128 open spectra on the card and on the CPU;
-   every FeatureTable column must be equal.
+   every FeatureTable column must be equal; prints both scorers'
+   ``fused_reruns``.
 12. CLI on the card: ``python -m sage_tpu_torch config.json -o dir`` as a
     subprocess, on a 300-protein FASTA and a 512-spectrum MGF, must exit
     0, and its results.sage.tsv and results.sage.pin must be byte-equal
@@ -98,10 +102,12 @@ seconds):
     timed at the batch's sort inputs.
 16. Banded, low-resolution fragments: phase 15 with +-0.5 Da fragments
     (+-1.0 Da if the entry rows stay within 2^15 keys), as ion-trap MS2
-    is searched. The merge kernel must launch on this path; the columns
-    must equal the candidate-major run's. The merge kernel is checked
-    against its plain version and torch.sort, and timed, at every block
-    the batch gave it, beside its bound.
+    is searched. The cluster kernel must launch on this path, once for
+    each sort of rows past 2^15 keys (no other kernel for those rows);
+    the columns must equal the candidate-major run's. The cluster kernel
+    is checked against its plain version and torch.sort at every input
+    the batch gave it, and timed there beside its bound and the parent
+    commit's whole long-row sort of the same rows.
 19. Banded against candidate-major (runs after 16): both stage 1s,
     forced, on phase 15's batch at +-1.5, +-3 and +-6 Da precursor
     windows (W = 4096, 8192, 16384; SAGE_TPU_OPEN_THRESHOLD raised so the
@@ -130,10 +136,10 @@ seconds):
     ``{"ok": true, ...}`` line. ``launches`` is each kernel's count on
     its main path (phase 3, 6 or 16), ``launches_by_path`` its count on
     each path that runs it (stage-1: phases 3, 11, 13, 17 and phase 15's
-    candidate-major run; row sort: 6, 14, 15, 16; merge: 16, 6, 14;
-    phases 15 and 16 count their banded runs). The
-    merge kernel's times are phase 16's; phase 7's lowered-limit run
-    adds ``forced_launches``.
+    candidate-major run; row sort: 6, 14, 15, 16; cluster sort: 16, 6,
+    14; phases 15 and 16 count their banded runs). The cluster kernel's
+    times are phase 16's; phase 7's lowered-limit run adds
+    ``forced_launches``.
 
 A ``# record:`` line repeats the run's numbers as JSON.
 """
@@ -171,9 +177,14 @@ KERNELS = {
                       "sage_tpu/ops/pallas_stage1.py:49"),
     "row_sort": ("sage_tpu_torch/csrc/row_sort.cu",
                  "sage_tpu/ops/pallas_sort.py:52"),
-    "bitonic_merge": ("sage_tpu_torch/csrc/bitonic_merge.cu",
-                      "sage_tpu/ops/pallas_sort.py:73"),
+    "cluster_sort": ("sage_tpu_torch/csrc/cluster_sort.cu",
+                     "sage_tpu/ops/pallas_sort.py:73"),
 }
+# The parent commit's whole long-row sort (its 2^15-key block sorts, the
+# flip passes in torch and the bitonic merge kernel), ms a batch,
+# measured by time_long_sort.py on an NVIDIA H100 80GB HBM3 at 700 W:
+# phase 16's rows and phase 7's lowered-limit rows
+PARENT_LONG_SORT_MS = {"phase16": 14.08, "phase7": 10.29}
 # bench.py's open workload (bench.py:63-65, 683-699)
 OPEN_BATCH = 512
 OPEN_BATCHES = 4
@@ -703,11 +714,12 @@ def open_phases(torch, tsearch, topen, pallas_sort, db, spectra, dev, times):
                 f"{p['classes']}")
         log(f"# open main path: {OPEN_BATCHES} x {B} spectra in "
             f"{wall_s:.3f} s wall = {OPEN_BATCHES * B / wall_s:.1f} "
-            f"spectra/s; sort launches {launches['row_sort']}, merge "
-            f"launches {launches['bitonic_merge']}; {n_dev} of "
-            f"{len(per_batch)} dispatches device-planned, {reruns} reruns; "
-            f"peak device memory {peak_gib:.2f} GiB")
-        assert len(per_batch) == OPEN_BATCHES + reruns
+            f"spectra/s; sort launches {launches['row_sort']}, cluster "
+            f"launches {launches['cluster_sort']}; {n_dev} of "
+            f"{len(per_batch)} dispatches device-planned; fused_reruns "
+            f"{reruns} (overflowed batches scored again through the "
+            f"two-dispatch path); peak device memory {peak_gib:.2f} GiB")
+        assert len(per_batch) == OPEN_BATCHES
         assert all(n > 0 for n, _p in per_batch), per_batch
         assert launches["row_sort"] == sum(n for n, _p in per_batch)
         for t, bt in zip(tables, batches):
@@ -723,7 +735,7 @@ def open_phases(torch, tsearch, topen, pallas_sort, db, spectra, dev, times):
             [(topen, "_probe"), (tsearch, "_device_open_count"),
              (topen, "bitonic_sort_rows"), (tsearch, "rescore_candidate")],
             {"row_sort": "row_sort_kernel",
-             "bitonic_merge": "bitonic_merge_blocks"},
+             "cluster_sort": "cluster_sort_kernel"},
         )
     out.update(batch=B, batches=OPEN_BATCHES, wall_s=wall_s,
                spectra_per_s=OPEN_BATCHES * B / wall_s,
@@ -732,49 +744,35 @@ def open_phases(torch, tsearch, topen, pallas_sort, db, spectra, dev, times):
                plans=[p for _n, p in per_batch],
                batch_breakdown=breakdown)
 
-    with Phase("7_open_merge_kernel", times):
+    with Phase("7_open_cluster_kernel", times):
         # the default run of a device-planned batch; its sort inputs are
         # recorded for phase 8
         b = batches[0]
         captured = []
-        real_sort = topen.bitonic_sort_rows
-
-        def recording(key, *a, **k):
-            captured.append(key.clone())
-            return real_sort(key, *a, **k)
-
-        topen.bitonic_sort_rows = recording
-        try:
+        with Recording(topen, "bitonic_sort_rows",
+                       lambda out, key, *a, **k: captured.append(key.clone())):
             scorer._psm_counter = 1
             t_default = scorer.score_table(b)
-        finally:
-            topen.bitonic_sort_rows = real_sort
         assert scorer.last_plan["device_planned"]
-        merged = []
-        real_merge = pallas_sort.merge_blocks
-
-        def recording_merge(x, cb):
-            merged.append((x.clone(), cb))
-            return real_merge(x, cb)
-
+        clustered = []
         block_max = pallas_sort._BLOCK_MAX
         pallas_sort._BLOCK_MAX = LOWERED_BLOCK_MAX
-        pallas_sort.merge_blocks = recording_merge
         for k in pallas_sort.launches:
             pallas_sort.launches[k] = 0
         try:
-            scorer._psm_counter = 1
-            t_low = scorer.score_table(b)
-            torch.cuda.synchronize()
+            with Recording(pallas_sort, "cluster_sort",
+                           lambda out, x, *a, **k: clustered.append(x.clone())):
+                scorer._psm_counter = 1
+                t_low = scorer.score_table(b)
+                torch.cuda.synchronize()
         finally:
             pallas_sort._BLOCK_MAX = block_max
-            pallas_sort.merge_blocks = real_merge
         low_launches = dict(pallas_sort.launches)
         log(f"# lowered one-pass limit {LOWERED_BLOCK_MAX}: sort launches "
-            f"{low_launches['row_sort']}, merge launches "
-            f"{low_launches['bitonic_merge']}, F per segment "
-            f"{scorer.last_plan['F']}")
-        assert low_launches["bitonic_merge"] > 0, low_launches
+            f"{low_launches['row_sort']}, cluster launches "
+            f"{low_launches['cluster_sort']}, F per segment "
+            f"{scorer.last_plan['F']}, rows {[list(x.shape) for x in clustered]}")
+        assert low_launches["cluster_sort"] == len(clustered) > 0, low_launches
         assert_tables_equal(t_low, t_default, "lowered one-pass limit")
         log(f"# lowered one-pass limit: all {len(t_default.columns)} "
             f"FeatureTable columns equal the default run's "
@@ -785,50 +783,40 @@ def open_phases(torch, tsearch, topen, pallas_sort, db, spectra, dev, times):
         n_checked = 0
         shapes = [(k.shape[0], k.shape[1]) for k in captured]
         rand = [(16, 1), (64, 100), (256, 1000), (512, 4096), (64, 20000),
-                (64, 32768), (32, 50000), (16, 100000), (8, 131072)]
+                (64, 32768), (32, 32769), (32, 50000), (16, 100000),
+                (8, 131072)]
         for B_r, F_r in rand:
             x = torch.from_numpy(rng.integers(
                 -(2**26), 2**26, size=(B_r, F_r)).astype(np.int32)).to(dev)
             x[:, F_r // 3:F_r // 3 + 5] = 2**31 - 1
             got = pallas_sort.bitonic_sort_rows(x)
             assert torch.equal(got, torch.sort(x, dim=1).values), (B_r, F_r)
-            # the sort kernel alone at this row's block shape: one pass,
-            # or the 2^15-key blocks of the hierarchical path
-            Fp = 1 << max(F_r - 1, 0).bit_length()
-            cb = min(Fp, pallas_sort._BLOCK_MAX)
-            Fout = F_r if cb == Fp else Fp
-            assert torch.equal(
-                pallas_sort.sort_blocks(x, cb, Fout, 2**31 - 1),
-                pallas_sort.sort_blocks_plain(x, cb, Fout, 2**31 - 1),
-            ), (B_r, F_r)
+            assert torch.equal(got, _plain_sort(pallas_sort, x)), (B_r, F_r)
             n_checked += 1
         # every digit pass's edge: the full int32 range (its landmarks in
         # every row) and all-equal rows (every pass skipped)
         for kind in ("int32_range", "equal"):
-            for B_r, F_r in ((64, 20480), (32, 32768), (8, 131072)):
+            for B_r, F_r in ((64, 20480), (32, 32768), (8, 40000),
+                             (8, 131072)):
                 x = _edge_keys(torch, rng, kind, B_r, F_r, dev)
                 got = pallas_sort.bitonic_sort_rows(x)
                 assert torch.equal(got, torch.sort(x, dim=1).values), (
                     kind, F_r)
-                if F_r <= pallas_sort._BLOCK_MAX:
-                    assert torch.equal(got, pallas_sort.sort_rows_plain(x))
+                assert torch.equal(got, _plain_sort(pallas_sort, x))
                 n_checked += 1
         for x in warm_sorts + captured:
             got = pallas_sort.bitonic_sort_rows(x)
             assert torch.equal(got, pallas_sort.sort_rows_plain(x))
             assert torch.equal(got, torch.sort(x, dim=1).values)
             n_checked += 1
-        # the merge kernel at the block size the main path gives it (rows
-        # past 2^15 keys): one open batch of rows of 2^16 keys
-        merge_main = _bitonic_blocks(torch, rng, 2 * B, pallas_sort._BLOCK_MAX,
-                                     dev)
-        for xb, cb in merged + [(merge_main, pallas_sort._BLOCK_MAX),
-                                (_bitonic_blocks(torch, rng, 512, 4096, dev),
-                                 4096)]:
-            got = pallas_sort.merge_blocks(xb, cb)
-            assert torch.equal(got, pallas_sort.merge_blocks_plain(xb, cb))
-            assert torch.equal(got, torch.sort(xb.view(-1, cb), dim=1)
-                               .values.view(xb.shape))
+        # the cluster kernel at phase 7's rows and at open rows of 2^16
+        # keys shaped like phase 16's (one batch of them)
+        open16 = [_open_rows(torch, rng, 2048, 1 << 16, dev)
+                  for _ in range(2)]
+        for x in clustered + open16:
+            got = pallas_sort.cluster_sort(x)
+            assert torch.equal(got, pallas_sort.cluster_sort_plain(x))
+            assert torch.equal(got, torch.sort(x, dim=1).values)
             n_checked += 1
         torch.cuda.synchronize()
         log(f"# sort kernels vs plain: {n_checked} inputs bit-equal (kernel, "
@@ -841,35 +829,45 @@ def open_phases(torch, tsearch, topen, pallas_sort, db, spectra, dev, times):
                             f"{B}-spectrum open batch")
         warm_sort_t = time_sorts(torch, pallas_sort, warm_sorts,
                                  f"host-planned {B}-spectrum warm-up batch")
-        merge_t = time_merges(torch, pallas_sort, [(merge_main,
-                                                    pallas_sort._BLOCK_MAX)],
-                              f"{merge_main.shape[0]} blocks of "
-                              f"{pallas_sort._BLOCK_MAX} (rows of 2^16 keys)")
-        forced_t = time_merges(torch, pallas_sort, merged,
-                               f"lowered-limit batch, blocks of "
-                               f"{LOWERED_BLOCK_MAX}")
-    out.update(sort_warmup=warm_sort_t, merge_forced=forced_t)
+        forced_t = time_cluster(
+            torch, pallas_sort, clustered,
+            f"phase 7's lowered-limit batch ({len(clustered)} launches)",
+            parent="phase7")
+        open16_t = time_cluster(torch, pallas_sort, open16,
+                                "2 x [2048, 65536] open rows")
+        for n in (4, 8):
+            blk = -(-open16[0].shape[1] // n)
+            open16_t[f"ctas{n}_ms"] = time_cluster(
+                torch, pallas_sort, open16, f"2 x [2048, 65536] open rows, "
+                f"{n} CTAs a row", block=blk)["ms"]
+    out.update(sort_warmup=warm_sort_t, cluster_forced=forced_t,
+               cluster_open16=open16_t)
     kernels = [
         {"name": "row_sort", "launches": launches["row_sort"],
          "max_abs_err": 0, **sort_t, "warmup_ms": warm_sort_t["ms"],
          "warmup_library_ms": warm_sort_t["library_ms"],
          "warmup_bound_ms": warm_sort_t["bound_ms"]},
-        # the main path launches the merge kernel only for rows past 2^15
+        # the main path launches the cluster kernel only for rows past 2^15
         # keys, which this workload never gives it; phase 7's lowered-limit
         # run launches it (forced_launches)
-        {"name": "bitonic_merge", "launches": launches["bitonic_merge"],
-         "max_abs_err": 0, **merge_t,
-         "forced_launches": low_launches["bitonic_merge"],
-         "forced_ms": forced_t["ms"]},
+        {"name": "cluster_sort", "launches": launches["cluster_sort"],
+         "forced_launches": low_launches["cluster_sort"],
+         "forced_ms": forced_t["ms"], "open16_ms": open16_t["ms"],
+         "open16_bound_ms": open16_t["bound_ms"]},
     ]
 
     with Phase("9_open_card_vs_cpu", times):
         sub = batches[1][:128]
-        t_gpu = tsearch.Scorer(db, params).score_table(sub)
-        t_cpu = tsearch.Scorer(db, params, device="cpu").score_table(sub)
+        s_gpu = tsearch.Scorer(db, params)
+        s_cpu = tsearch.Scorer(db, params, device="cpu")
+        t_gpu = s_gpu.score_table(sub)
+        t_cpu = s_cpu.score_table(sub)
         assert_tables_equal(t_gpu, t_cpu, "open card vs CPU")
+        assert s_gpu.fused_reruns == s_cpu.fused_reruns
         log(f"# open card vs CPU: {len(t_cpu)} PSMs of {len(sub)} spectra, "
-            f"all {len(t_cpu.columns)} FeatureTable columns equal")
+            f"all {len(t_cpu.columns)} FeatureTable columns equal; "
+            f"fused_reruns {s_gpu.fused_reruns} on the card, "
+            f"{s_cpu.fused_reruns} on the CPU")
     return out, kernels, (params, batches, tables)
 
 
@@ -911,26 +909,68 @@ def time_sorts(torch, pallas_sort, xs, what, reps=20):
     return t
 
 
-def time_merges(torch, pallas_sort, inputs, what, reps=20):
-    """The merge kernel, its plain version and torch.sort of the same
-    blocks on each (x, cb) of ``inputs``, timed and summed as above."""
-    t = dict(ms=0.0, plain_ms=0.0, library_ms=0.0)
+def time_cluster(torch, pallas_sort, xs, what, block=None, parent=None,
+                 reps=20):
+    """The cluster kernel (``block`` forcing its slice size), torch.sort
+    and the kernel again on each input of ``xs``, then (with its default
+    shape) its plain version, timed with CUDA events and summed, beside
+    the card's bound for the same work, its cluster size and
+    cudaOccupancyMaxActiveClusters, and with ``parent`` the parent
+    commit's whole long-row sort of those rows."""
+    t = dict(ms=0.0, plain_ms=0.0 if block is None else None,
+             library_ms=0.0)
     nb_t = ops_t = 0.0
-    for xb, cb in inputs:
-        t["ms"] += cuda_ms(lambda: pallas_sort.merge_blocks(xb, cb), reps)
-        t["plain_ms"] += cuda_ms(
-            lambda: pallas_sort.merge_blocks_plain(xb, cb), 3)
-        t["library_ms"] += cuda_ms(
-            lambda: torch.sort(xb.view(-1, cb), dim=1), reps)
-        nb, ops = sort_work(xb.numel() // cb, cb)
+    for x in xs:
+        km1 = cuda_ms(lambda: pallas_sort.cluster_sort(x, block), reps)
+        t["library_ms"] += cuda_ms(lambda: torch.sort(x, dim=1), reps)
+        km2 = cuda_ms(lambda: pallas_sort.cluster_sort(x, block), reps)
+        t["ms"] += (km1 + km2) / 2
+        if block is None:
+            t["plain_ms"] += cuda_ms(
+                lambda: pallas_sort.cluster_sort_plain(x), 1)
+        nb, ops = sort_work(*x.shape)
         nb_t += nb
         ops_t += ops
     t["bound_ms"], t["bound_by"] = bound_ms(nb_t, ops_t, INT32_OPS_PER_S)
-    log(f"# bitonic_merge per {what} ({len(inputs)} launches): kernel "
-        f"{t['ms']:.4f} ms, plain {t['plain_ms']:.3f} ms, torch.sort "
-        f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
-        f"({t['bound_by']})")
+    t["bound_share"] = t["bound_ms"] / t["ms"]
+    C, G, act, smem = pallas_sort.cluster_occupancy(*xs[0].shape, block)
+    t.update(ctas=C, chunk=G, active_clusters=act, smem_bytes=smem)
+    real = sum(int((x != 2**31 - 1).sum()) for x in xs)
+    log(f"# cluster_sort per {what}: rows {[list(x.shape) for x in xs]}, "
+        f"real-key share {real / (nb_t / 8):.3f}; {C} CTAs a row, chunks "
+        f"of {G}, {smem} shared bytes a CTA, {act} active clusters "
+        f"(cudaOccupancyMaxActiveClusters); kernel {t['ms']:.4f} ms, "
+        f"torch.sort {t['library_ms']:.4f} ms, plain {t['plain_ms']} ms, "
+        f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), share of bound "
+        f"{t['bound_share']:.3f}")
+    if parent:
+        t["parent_ms"] = PARENT_LONG_SORT_MS[parent]
+        log(f"# cluster_sort per {what}: the parent commit's whole long-row "
+            f"sort of {parent}'s rows took {t['parent_ms']} ms "
+            f"(time_long_sort.py): {t['parent_ms'] / t['ms']:.2f}x the "
+            f"kernel's time")
     return t
+
+
+def _plain_sort(pallas_sort, x):
+    """The plain version of the kernel that sorts rows like ``x``."""
+    if x.shape[1] <= pallas_sort._BLOCK_MAX:
+        return pallas_sort.sort_rows_plain(x)
+    return pallas_sort.cluster_sort_plain(x)
+
+
+def _open_rows(torch, rng, B, F, dev):
+    """[B, F] i32 rows like the banded stage 1's at +-0.5 Da fragments:
+    open keys ((2^25 - pep) << 5) | z of about 4,000 peptides a row
+    packed at the front, up to 8,700 of them (its largest count), then
+    INT32_MAX."""
+    n = rng.integers(0, 8700, size=B)
+    pep = rng.integers(0, 1_700_000, size=(B, 1)) + rng.integers(
+        0, 4000, size=(B, F))
+    x = (((2**25 - pep) << 5) | rng.integers(1, 4, size=(B, F))).astype(
+        np.int32)
+    x[np.arange(F)[None, :] >= n[:, None]] = 2**31 - 1
+    return torch.from_numpy(x).to(dev)
 
 
 def _edge_keys(torch, rng, kind, B, F, dev):
@@ -943,16 +983,6 @@ def _edge_keys(torch, rng, kind, B, F, dev):
         x[:, rng.choice(F, 4, replace=False)] = np.array(
             [-(2**31), -1, 0, 2**31 - 1], np.int32)
     return torch.from_numpy(x).to(dev)
-
-
-def _bitonic_blocks(torch, rng, nblocks, cb, dev):
-    """[nblocks, cb] i32 rows, each an ascending run followed by a
-    descending one (bitonic), as the merge kernel receives them."""
-    x = rng.integers(-1000, 1000, size=(nblocks, cb)).astype(np.int32)
-    h = cb // 2
-    x[:, :h] = np.sort(x[:, :h], axis=1)
-    x[:, h:] = np.sort(x[:, h:], axis=1)[:, ::-1]
-    return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
 
 
 def _enc(arr, dtype):
@@ -1281,16 +1311,18 @@ def banded_phase(torch, mods, db, spectra, times, name, frags,
     banded stage 1 (SAGE_TPU_NARROW_BANDED=1). A warm-up batch (phase
     3's) learns the entry capacity F, then phase 3's first batch runs with
     the launch counters set to 0 just before and read just after: the
-    banded branch, the row-sort kernel and, with ``lowres``, the merge
-    kernel must launch. Every FeatureTable column must equal the same
+    banded branch and the row-sort kernel, or with ``lowres`` the cluster
+    kernel (once for each sort of rows past 2^15 keys, and no other
+    kernel for those sorts), must launch. Every FeatureTable column must
+    equal the same
     batch's with SAGE_TPU_NARROW_BANDED=0 (the candidate-major stage-1
     kernel at Wb = 4096) and with no environment variable (the auto
     gate, whose choice is checked). ``frags``: fragment tolerances in
     order of preference; with ``lowres`` the first whose F puts the entry
     rows past the one-pass limit is kept. ``cpu_spectra``: that many
-    spectra on the card and on the CPU, every column equal. The sort (and
-    merge) kernels are then checked against their plain versions and
-    timed at the inputs the batch gave them."""
+    spectra on the card and on the CPU, every column equal. The sort
+    kernels are then checked against their plain versions and torch.sort
+    and timed at the inputs the batch gave them."""
     tsearch, tbanded, topen, pallas_sort, pallas_stage1 = (
         mods["search"], mods["banded"], mods["open"], mods["sort"],
         mods["stage1"])
@@ -1325,6 +1357,7 @@ def banded_phase(torch, mods, db, spectra, times, name, frags,
         # the measured batch
         scorer._psm_counter = 1
         calls = []
+        measured0 = scorer.fused_reruns
         pallas_stage1.launches = 0
         for k in pallas_sort.launches:
             pallas_sort.launches[k] = 0
@@ -1340,15 +1373,17 @@ def banded_phase(torch, mods, db, spectra, times, name, frags,
         lp = dict(scorer.last_plan)
         totmax = [int(c[1].item()) for c in calls]
         reruns = scorer.fused_reruns - reruns0
+        measured_reruns = scorer.fused_reruns - measured0
         log(f"# {name}: {B} spectra in {wall_s:.3f} s = {B / wall_s:.1f} "
             f"spectra/s; banded dispatches {len(calls)}, W {lp.get('W')}, "
             f"nbcov {[c[3] for c in calls]}, F {[c[2] for c in calls]}, "
-            f"totmax {totmax}, overflow reruns in the phase {reruns}; "
+            f"totmax {totmax}, overflow reruns in the phase {reruns} (in "
+            f"the measured batch {measured_reruns}); "
             f"launches {launches}, stage1_counts {pallas_stage1.launches}; "
             f"peak device memory {peak_gib:.2f} GiB")
         assert calls and lp.get("banded"), f"{name}: no banded dispatch"
-        assert launches["row_sort"] > 0, launches
-        assert not lowres or launches["bitonic_merge"] > 0, launches
+        assert launches["row_sort" if not lowres else "cluster_sort"] > 0, (
+            launches)
         t = tables[0]
         assert len(t) > 0.9 * B, len(t)
         assert np.isfinite(t.columns["hyperscore"]).all()
@@ -1410,21 +1445,27 @@ def banded_phase(torch, mods, db, spectra, times, name, frags,
                 f"spectra (banded), all {len(t_cpu.columns)} "
                 f"FeatureTable columns equal")
 
-        # the batch once more, its sort and merge inputs recorded
-        sorts, merges = [], []
+        # the batch once more, its sort inputs recorded
+        sorts = []
         scorer._psm_counter = 1
         with Recording(topen, "bitonic_sort_rows",
-                       lambda out, x, *a, **k: sorts.append(x.clone())), \
-                Recording(pallas_sort, "merge_blocks",
-                          lambda out, x, cb: merges.append((x.clone(), cb))):
+                       lambda out, x, *a, **k: sorts.append(x.clone())):
             again = scorer.score_table(batch)
         assert_tables_equal(again, t, f"{name} recorded run")
+        # one launch for each sort of the measured run (unless a rerun
+        # added sorts): the cluster kernel for rows past the one-pass
+        # limit, the row-sort kernel for the others
+        n_long = sum(1 for x in sorts if x.shape[1] > pallas_sort._BLOCK_MAX)
+        want = {"row_sort": len(sorts) - n_long, "cluster_sort": n_long}
+        assert launches == want if not measured_reruns else all(
+            launches[k] >= n for k, n in want.items()), (launches, want)
+        assert not lowres or n_long == len(sorts) > 0
         breakdown = profile_batch(
             torch, scorer, batch,
             [(tbanded, "_bounded_search"), (tbanded, "_open_count_core"),
              (topen, "bitonic_sort_rows"), (tsearch, "rescore_candidate")],
             {"row_sort": "row_sort_kernel",
-             "bitonic_merge": "bitonic_merge_blocks"},
+             "cluster_sort": "cluster_sort_kernel"},
         )
         rec["batch_breakdown"] = breakdown
         rec["sort_rows"] = [list(x.shape) for x in sorts]
@@ -1433,35 +1474,20 @@ def banded_phase(torch, mods, db, spectra, times, name, frags,
         for i, x in enumerate(sorts):
             got = pallas_sort.bitonic_sort_rows(x)
             assert torch.equal(got, torch.sort(x, dim=1).values), i
-            if x.shape[1] <= pallas_sort._BLOCK_MAX:
-                assert torch.equal(got, pallas_sort.sort_rows_plain(x)), i
-            elif i == 0:
-                Fp = 1 << (x.shape[1] - 1).bit_length()
-                cb = pallas_sort._BLOCK_MAX
-                assert torch.equal(
-                    pallas_sort.sort_blocks(x, cb, Fp, 2**31 - 1),
-                    pallas_sort.sort_blocks_plain(x, cb, Fp, 2**31 - 1))
-        for xb, cb in merges:
-            got = pallas_sort.merge_blocks(xb, cb)
-            assert torch.equal(got, pallas_sort.merge_blocks_plain(xb, cb))
-            assert torch.equal(got, torch.sort(xb.view(-1, cb), dim=1)
-                               .values.view(xb.shape))
+            assert torch.equal(got, _plain_sort(pallas_sort, x)), i
         sync()
         log(f"# {name} kernels vs plain: {len(sorts)} sort inputs "
-            f"{rec['sort_rows']} and {len(merges)} merge inputs bit-equal "
-            f"(kernel, plain version and torch.sort)")
+            f"{rec['sort_rows']} bit-equal (kernel, plain version and "
+            f"torch.sort)")
         if lowres:
-            blocks = sum(xb.numel() // cb for xb, cb in merges)
-            log(f"# {name}: merge kernel {len(merges)} launches, {blocks} "
-                f"blocks of {pallas_sort._BLOCK_MAX} a batch")
-            rec["merge"] = time_merges(
-                torch, pallas_sort, merges,
-                f"{name} batch, {blocks} blocks of {pallas_sort._BLOCK_MAX}")
-            rec["merge"].update(launches=len(merges), blocks=blocks)
+            rec["cluster"] = time_cluster(
+                torch, pallas_sort, sorts, f"{name} {B}-spectrum batch",
+                parent="phase16")
+            rec["cluster"]["launches"] = len(sorts)
         else:
             rec["sort"] = time_sorts(torch, pallas_sort, sorts,
                                      f"{name} {B}-spectrum batch")
-        del sorts, merges
+        del sorts
     return rec
 
 
@@ -1490,7 +1516,7 @@ def crossover_phase(torch, mods, db, spectra, times):
               (tsearch, "_topk_layout"), (tsearch, "rescore_candidate")]
     kernel_keys = {"stage1_counts": "stage1_counts",
                    "row_sort": "row_sort_kernel",
-                   "bitonic_merge": "bitonic_merge_blocks"}
+                   "cluster_sort": "cluster_sort_kernel"}
     cells = []
     with Phase("19_banded_crossover", times), \
             EnvSet("SAGE_TPU_OPEN_THRESHOLD", str(1 << 20)):
@@ -1542,7 +1568,7 @@ def crossover_phase(torch, mods, db, spectra, times):
                         s1 = (ph.get("_bounded_search_device_ms", 0)
                               + ph.get("_open_count_core_device_ms", 0)
                               + ph.get("row_sort_kernel_device_ms", 0)
-                              + ph.get("bitonic_merge_kernel_device_ms", 0))
+                              + ph.get("cluster_sort_kernel_device_ms", 0))
                     else:
                         s1 = (ph.get("stage1_counts_kernel_device_ms", 0)
                               + ph.get("_topk_layout_device_ms", 0))
@@ -1977,27 +2003,27 @@ def main():
         "banded_lowres": lowres["launches"]["row_sort"]}
     k_row.update({f"banded_{k}": banded["sort"][k]
                   for k in ("ms", "plain_ms", "library_ms", "bound_ms")})
-    # the merge kernel's main path is the low-resolution banded batch (rows
-    # past 2^15 keys); the open path's synthetic rows of 2^16 keys and
-    # phase 7's lowered-limit run stay beside it
-    m16, k_open_merge = lowres["merge"], k_sort[1]
-    k_merge = {
-        "name": "bitonic_merge",
-        "launches": lowres["launches"]["bitonic_merge"], "max_abs_err": 0,
-        **{k: m16[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                               "bound_by", "blocks")},
-        "bound_share": m16["bound_ms"] / m16["ms"],
-        "open_rows_2e16_ms": k_open_merge["ms"],
-        "open_rows_2e16_bound_ms": k_open_merge["bound_ms"],
-        "forced_launches": k_open_merge["forced_launches"],
-        "forced_ms": k_open_merge["forced_ms"],
+    # the cluster kernel's main path is the low-resolution banded batch
+    # (rows past 2^15 keys); phase 8's open rows of 2^16 keys and phase 7's
+    # lowered-limit run stay beside it
+    c16, k_open_cl = lowres["cluster"], k_sort[1]
+    k_cluster = {
+        "name": "cluster_sort",
+        "launches": lowres["launches"]["cluster_sort"], "max_abs_err": 0,
+        **{k: c16[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                               "bound_by", "bound_share", "ctas",
+                               "active_clusters")},
+        "open16_ms": k_open_cl["open16_ms"],
+        "open16_bound_ms": k_open_cl["open16_bound_ms"],
+        "forced_launches": k_open_cl["forced_launches"],
+        "forced_ms": k_open_cl["forced_ms"],
         "launches_by_path": {
-            "banded_lowres": lowres["launches"]["bitonic_merge"],
-            "open_fused": k_open_merge["launches"],
-            "two_dispatch_open": td_open["launches_all"]["bitonic_merge"]},
+            "banded_lowres": lowres["launches"]["cluster_sort"],
+            "open_fused": k_open_cl["launches"],
+            "two_dispatch_open": td_open["launches_all"]["cluster_sort"]},
     }
     kernels = {"kernels": []}
-    for k in (k_stage1, k_row, k_merge):
+    for k in (k_stage1, k_row, k_cluster):
         src, replaces = KERNELS[k["name"]]
         kernels["kernels"].append({
             "name": k["name"], "route": "cuda", "source": src,

@@ -2,11 +2,9 @@
 // (sm_90a).
 //
 // Replaces the TPU kernel sage_tpu/ops/pallas_sort.py::_sort_kernel (the
-// one-pass ascending sort of a row). row_sort_kernel sorts each CB-key
-// block of each row: a row of up to 2^15 keys is one block, sorted
-// exactly (no padding to a power of two); the hierarchical path for
-// longer rows sorts its 2^15-key blocks with it and then merges them with
-// bitonic_merge_blocks_kernel (csrc/bitonic_merge.cu).
+// one-pass ascending sort of a row). row_sort_kernel sorts each row of up
+// to 2^15 keys exactly (no padding to a power of two); longer rows go to
+// cluster_sort_kernel (csrc/cluster_sort.cu).
 //
 // What bounds it on an H100. The least work is one read and one write of
 // every key (8 bytes a key at 3.35 TB/s); at the open search's rows the
@@ -17,7 +15,7 @@
 // accesses a key at 2^15 keys, bound by the shared-memory pipe and the
 // barriers, not by the bytes.
 //
-// Design. One CTA owns one block of n <= 2^15 keys; each thread holds
+// Design. One CTA owns one row of n <= 2^15 keys; each thread holds
 // KPT of them in registers (KPT = 8, 16 or 32 by n, at most 32 warps),
 // warp-striped: lane l of warp w holds positions w * seg + i * 32 + l,
 // i < seg / 32 (seg = 32 KPT at the load), so loads and stores of device
@@ -26,16 +24,16 @@
 // order is i32 order over the whole range.
 //
 // Keys equal to INT32_MAX are not ranked: they are the largest i32, so
-// they go to the end of the block, after every ranked key. They are the
+// they go to the end of the row, after every ranked key. They are the
 // open search's invalid entries, 83-92% of its rows on the bench's open
-// workload. When the block holds any, the ranked keys are first compacted
+// workload. When the row holds any, the ranked keys are first compacted
 // to the front of the exchange buffer in position order (a ballot per
 // round and a scan over warps) and spread evenly over the warps again
 // (seg = ceil(nr / warps), rounded up to 32): a warp's rounds are a chain
 // of dependent steps, so a pass takes as long as its longest warp.
 //
 // Four passes of 8-bit digits, least significant first; a pass whose
-// digit is the same for every ranked key of the block (from a block-wide
+// digit is the same for every ranked key of the row (from a block-wide
 // OR and AND of them) is skipped, as a stable pass over a constant digit
 // keeps the order. Each pass:
 //   1. count: per round, __match_any_sync on the digit groups the warp's
@@ -63,14 +61,8 @@
 // ptxas spills about 150 bytes a thread; capping the block at fewer
 // threads to give it more registers halved the CTAs an SM holds for
 // 16,384-key rows and was slower.
-//
-// Pads. sort_blocks' contract reads positions past the row as the pad
-// key. The kernel never sorts them: it sorts the block's n keys and
-// merges the (CB - n) virtual pad keys in when it writes the output,
-// before the first ranked key that is not below the pad (a binary
-// search), ahead of the unranked INT32_MAX keys. Keys are plain int32:
-// every correct sort gives one output, so the result is bit-equal to
-// torch.sort and to the plain version.
+// Keys are plain int32: every correct sort gives one output, so the
+// result is bit-equal to torch.sort and to the plain version.
 
 #include <cuda_runtime.h>
 
@@ -84,8 +76,7 @@ constexpr unsigned kSign = 0x80000000u;
 
 template <int KPT>
 __global__ void __launch_bounds__(1024)
-row_sort_kernel(const int* __restrict__ in, int* __restrict__ out, int F,
-                int Fout, int CB, int nblk, int pad) {
+row_sort_kernel(const int* __restrict__ in, int* __restrict__ out, int F) {
     extern __shared__ unsigned smem[];
     const int nw = blockDim.x >> 5;
     unsigned* buf = smem;                                 // [nw * 32 * KPT]
@@ -96,18 +87,16 @@ row_sort_kernel(const int* __restrict__ in, int* __restrict__ out, int F,
     const int warp = threadIdx.x >> 5;
     const int lane = threadIdx.x & 31;
     const unsigned lt = (1u << lane) - 1u;
-    const long long row = blockIdx.x / nblk;
-    const int base = (blockIdx.x % nblk) * CB;
-    const int n = max(0, min(CB, F - base));        // keys in the block
-    const int nout = max(0, min(CB, Fout - base));  // positions written
+    const long long row = blockIdx.x;
+    const int n = F;  // keys in the row
     int seg = 32 * KPT;      // positions a warp holds, a multiple of 32
     int wpos = warp * seg;   // the warp's first position
     int* h = hist + warp * kBins;
 
     // Load (flipped). Keys equal to INT32_MAX (kFull once flipped) are
     // not ranked: they are the largest i32 and go to the end of the
-    // block. The ranked keys' OR, AND and count.
-    const int* src = in + row * F + base;
+    // row. The ranked keys' OR, AND and count.
+    const int* src = in + row * F;
     unsigned k[KPT];
     unsigned k_or = 0, k_and = kFull;
     int cnt = 0;
@@ -272,40 +261,20 @@ row_sort_kernel(const int* __restrict__ in, int* __restrict__ out, int F,
         lim = nr;  // the ranked keys are now buf[0, nr), in order
     }
 
-    // 4. Write positions < nout: the nr ranked keys in order (when no pass
-    // ran, every ranked key equals red[0]), the CB - n pad keys merged in
-    // before the first ranked key that is not below the pad, then the
-    // n - nr INT32_MAX keys.
+    // 4. Write the nr ranked keys in order (when no pass ran, every
+    // ranked key equals red[0]), then the n - nr INT32_MAX keys.
     const unsigned one = red[0];
-    const unsigned padk = (unsigned)pad ^ kSign;
-    const int npad = CB - n;
-    int lo = 0;
-    if (npad > 0) {
-        if (in_buf) {
-            int hi = nr;
-            while (lo < hi) {
-                const int mid = (lo + hi) >> 1;
-                if (buf[mid] < padk) lo = mid + 1;
-                else hi = mid;
-            }
-        } else {
-            lo = nr > 0 && one < padk ? nr : 0;
-        }
-    }
-    int* dst = out + row * Fout + base;
-    for (int q = threadIdx.x; q < nout; q += blockDim.x) {
-        const int j = q < lo ? q : (q < lo + npad ? -1 : q - npad);
+    int* dst = out + row * F;
+    for (int q = threadIdx.x; q < n; q += blockDim.x) {
         unsigned v = kFull;
-        if (j < 0) v = padk;
-        else if (j < nr) v = in_buf ? buf[j] : one;
+        if (q < nr) v = in_buf ? buf[q] : one;
         dst[q] = (int)(v ^ kSign);
     }
 }
 
 template <int KPT>
-int launch(const int* in, int* out, int rows, int F, int Fout, int CB,
-           int nblk, int pad, int nk, cudaStream_t stream) {
-    const int nw = (nk + 32 * KPT - 1) / (32 * KPT);
+int launch(const int* in, int* out, int rows, int F, cudaStream_t stream) {
+    const int nw = (F + 32 * KPT - 1) / (32 * KPT);
     const long long smem = 4LL * nw * (32 * KPT + kBins);
     if (smem > 48 * 1024) {
         const cudaError_t e = cudaFuncSetAttribute(
@@ -313,8 +282,7 @@ int launch(const int* in, int* out, int rows, int F, int Fout, int CB,
             (int)smem);
         if (e != cudaSuccess) return (int)e;
     }
-    row_sort_kernel<KPT><<<rows * nblk, nw * 32, (size_t)smem, stream>>>(
-        in, out, F, Fout, CB, nblk, pad);
+    row_sort_kernel<KPT><<<rows, nw * 32, (size_t)smem, stream>>>(in, out, F);
     return (int)cudaGetLastError();
 }
 
@@ -322,23 +290,17 @@ int launch(const int* in, int* out, int rows, int F, int Fout, int CB,
 
 extern "C" {
 
-// Sorts each CB-key block of each row ascending. Row r of `in` holds F
-// keys (row stride F); block b covers positions [b CB, (b+1) CB), and
-// positions >= F read `pad`. Writes positions < Fout of each row of `out`
-// (row stride Fout). CB in [1, 2^15]; nblk CB >= Fout. One pass over a
-// row of exactly F keys is CB = Fout = F, nblk = 1. Returns
-// cudaGetLastError() after the launch (0 on success).
-int row_sort(const void* in, void* out, int rows, int F, int Fout, int CB,
-             int nblk, int pad, void* stream) {
-    if (rows <= 0 || nblk <= 0 || Fout <= 0) return 0;
-    // keys a block sorts at most; at least one warp
-    const int nk = CB < F ? CB : (F > 1 ? F : 1);
+// Sorts each F-key row of `in` ascending into `out` (rows * F int32),
+// F in [1, 2^15]. Returns cudaGetLastError() after the launch (0 on
+// success).
+int row_sort(const void* in, void* out, int rows, int F, void* stream) {
+    if (rows <= 0 || F <= 0) return 0;
     const int* i = (const int*)in;
     int* o = (int*)out;
     cudaStream_t s = (cudaStream_t)stream;
-    if (nk <= 2048) return launch<8>(i, o, rows, F, Fout, CB, nblk, pad, nk, s);
-    if (nk <= 8192) return launch<16>(i, o, rows, F, Fout, CB, nblk, pad, nk, s);
-    return launch<32>(i, o, rows, F, Fout, CB, nblk, pad, nk, s);
+    if (F <= 2048) return launch<8>(i, o, rows, F, s);
+    if (F <= 8192) return launch<16>(i, o, rows, F, s);
+    return launch<32>(i, o, rows, F, s);
 }
 
 }  // extern "C"

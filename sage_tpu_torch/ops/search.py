@@ -877,15 +877,13 @@ class Scorer:
         peaks_dev = self._peaks_device(masses, intens)
         rows = self._expand_rows(spectra)
         fd = self._fused_dispatch(spectra, masses, Pk, peaks_dev, rows=rows)
-        t = None
         if fd is not None:
             t = self._fused_finalize(spectra, fd, masses, intens, Pk)
-            if t is None and fd.get("overflowed"):
-                t = self._rerun(spectra, masses, intens, Pk, peaks_dev, rows)
-        if t is None:
-            t = self._two_dispatch(spectra, masses, intens, Pk, peaks_dev,
-                                   rows)
-        return t
+            if t is not None:
+                return t
+            self._note_rerun()
+        return self._two_dispatch(spectra, masses, intens, Pk, peaks_dev,
+                                  rows)
 
     def _two_dispatch(self, spectra, masses, intens, Pk, peaks_dev, rows):
         """Stage 1 and the host merge, then the per-item rescore and the
@@ -896,24 +894,17 @@ class Scorer:
         return self._features_table(spectra, prelim, masses, intens, Pk,
                                     peaks_dev=peaks_dev)
 
-    def _rerun(self, spectra, masses, intens, Pk, peaks_dev, rows):
-        """Score a device-planned open batch again after its sticky shapes
-        overflowed (already grown by _fused_finalize). The JAX package
-        reruns it through its two-dispatch path, which records no sticky
-        shapes; the port reruns it through the host-planned open branch
-        of the fused path, with the same results and, skipping
-        note_shapes, the same sticky state. Returns None where that
-        branch declines the batch too."""
+    def _note_rerun(self):
+        """Count and log a fused batch that _fused_finalize declined (a
+        banded batch's entry capacity or a device-planned open batch's
+        sticky shapes overflowed and grew, or a sum reached 2^24); the
+        caller scores it again through the two-dispatch path, as the JAX
+        package does."""
         self.fused_reruns += 1
         log.warning(
-            "open sticky shapes overflowed; re-running the batch through "
-            "the host-planned open path"
+            "fused capacity overflow (banded entries or open sticky "
+            "shapes); re-running the batch via the two-dispatch path"
         )
-        fd = self._fused_dispatch(spectra, masses, Pk, peaks_dev, rows=rows,
-                                  rerun=True)
-        if fd is None:
-            return None
-        return self._fused_finalize(spectra, fd, masses, intens, Pk)
 
     def score_stream(self, batches):
         """Pipelined scoring over an iterable of spectrum batches: up to
@@ -959,17 +950,16 @@ class Scorer:
             return e
 
         def finish(e):
-            args = (e["batch"], e["masses"], e["intens"], e["Pk"],
-                    e["peaks_dev"], e["rows"])
             if e["fd"] is None:
                 return self._stage2_finalize(
                     e["batch"], e["prelim"], e["d2"],
                     self.params.report_psms, e["masses"], e["Pk"],
                 )
-            t = e["table"]
-            if t is None and e["fd"].get("overflowed"):
-                t = self._rerun(*args)
-            return t if t is not None else self._two_dispatch(*args)
+            if e["table"] is not None:
+                return e["table"]
+            self._note_rerun()
+            return self._two_dispatch(e["batch"], e["masses"], e["intens"],
+                                      e["Pk"], e["peaks_dev"], e["rows"])
 
         yield from pipeline_stream(batches, admit, advance, finish)
 
@@ -1248,14 +1238,12 @@ class Scorer:
         fallbacks."""
         return self._ksel() + 5
 
-    def _fused_dispatch(self, spectra, masses, Pk, peaks_dev, rows=None,
-                        rerun=False):
+    def _fused_dispatch(self, spectra, masses, Pk, peaks_dev, rows=None):
         """Plan the batch's stage-1 segments (narrow) or open-search
         pseudo-segments, launch them and the merge pass; returns the
         dispatch dict that _fused_finalize consumes, or None where the
         fused path's preconditions do not hold (the caller takes the
-        two-dispatch path). ``rerun`` plans an open batch on the host
-        without recording sticky shapes (see _rerun)."""
+        two-dispatch path)."""
         import os
 
         p = self.params
@@ -1304,7 +1292,7 @@ class Scorer:
         if open_regime:
             planned = self._open_plan(
                 masses, rows, peaks_dev, S_pad, slot, starts, counts_r,
-                maxz, Zb, G_eff, rerun,
+                maxz, Zb, G_eff,
             )
             if planned is None:
                 return None
@@ -1438,10 +1426,10 @@ class Scorer:
         return plan, ints, segs
 
     def _open_plan(self, masses, rows, peaks_dev, S_pad, slot, starts,
-                   counts_r, maxz, Zb, G_eff, rerun):
+                   counts_r, maxz, Zb, G_eff):
         """The open regime's plan: one or more ("banded", R_b)
         pseudo-segments whose count core produces the [R_b, 2K+2] top-K
-        layout. The first batch, an oversized one and a rerun plan on the
+        layout. The first batch and an oversized one plan on the
         host (searchsorted ranges); every other batch plans its ranges on
         the device under the sticky shapes that the host-planned batches
         recorded, in one class or in up to three slot size classes, with
@@ -1458,7 +1446,7 @@ class Scorer:
         b0_u, _b1, nbc = covered_bands(u0, u1, os_.band_w, os_.n_bands,
                                        n_spec)
         open_sticky = None
-        if not rerun and stk is not None:
+        if stk is not None:
             # class-aware element budget: each live (spectrum, band) slot
             # rides its own size class
             classes = stk["classes"]
@@ -1474,7 +1462,7 @@ class Scorer:
                 open_sticky = dict(stk)
         if open_sticky is None:
             return self._open_host_plan(os_, masses, rows, S_pad, slot,
-                                        maxz, Zb, G_eff, u0, u1, rerun)
+                                        maxz, Zb, G_eff, u0, u1)
 
         chunked = open_sticky["chunked"]
         classes = open_sticky["classes"]
@@ -1567,12 +1555,12 @@ class Scorer:
                 open_sticky)
 
     def _open_host_plan(self, os_, masses, rows, S_pad, slot, maxz, Zb,
-                        G_eff, u0, u1, rerun):
+                        G_eff, u0, u1):
         """Host-planned open batch: searchsorted ranges, at most one split
-        level (two pseudo-segments), and — unless ``rerun`` — the sticky
-        shapes and slot size classes that later batches plan under. None
-        where a split side is still past the element budget: the recursive
-        split runs through the two-dispatch path."""
+        level (two pseudo-segments), and the sticky shapes and slot size
+        classes that later batches plan under. None where a split side is
+        still past the element budget: the recursive split runs through
+        the two-dispatch path."""
         n_spec = masses.shape[0]
         n_rows = rows["si"].size
         si = rows["si"]
@@ -1593,19 +1581,18 @@ class Scorer:
         # the unit the band-major count core pads F to
         tot_sb = g_lens.reshape(n_spec, Zb, nbcov_g, Pk_eff).sum(axis=(1, 3))
         totals = tot_sb.max(axis=1)
-        if not rerun:
-            g_ends = g_starts + g_lens
-            rows_sb = np.where(
-                g_lens > 0,
-                (g_ends + (V_ROW - 1)) // V_ROW - g_starts // V_ROW,
-                0,
-            ).reshape(n_spec, Zb, nbcov_g, Pk_eff).sum(axis=(1, 3))
-            eb_t, valid_t = os_.est_band_sizes(masses, u0, u1)
-            os_.note_shapes(
-                chunked, Wc, int(totals.max(initial=0)),
-                slot_sizes=tot_sb.astype(np.float64), slot_ests=eb_t,
-                slot_valid=valid_t, slot_rows=rows_sb.astype(np.float64),
-            )
+        g_ends = g_starts + g_lens
+        rows_sb = np.where(
+            g_lens > 0,
+            (g_ends + (V_ROW - 1)) // V_ROW - g_starts // V_ROW,
+            0,
+        ).reshape(n_spec, Zb, nbcov_g, Pk_eff).sum(axis=(1, 3))
+        eb_t, valid_t = os_.est_band_sizes(masses, u0, u1)
+        os_.note_shapes(
+            chunked, Wc, int(totals.max(initial=0)),
+            slot_sizes=tot_sb.astype(np.float64), slot_ests=eb_t,
+            slot_valid=valid_t, slot_rows=rows_sb.astype(np.float64),
+        )
         sides = (
             [np.arange(n_spec)] if split is None
             else [np.flatnonzero(split), np.flatnonzero(~split)]
@@ -1702,12 +1689,11 @@ class Scorer:
         set. Spectra that trip the guard are recomputed from the
         untruncated on-device candidate arrays.
 
-        Returns None when a device-planned open batch overflowed its
-        sticky shapes (its entries may have been truncated, so the
-        overflowed classes grow, ``d["overflowed"]`` is set and the caller
-        reruns the batch); and, for the caller to take the two-dispatch
-        path, when a banded batch's entries reached its capacity F (which
-        grows first) and when a per-spectrum sum reached 2^24."""
+        Returns None, for the caller to score the batch again through the
+        two-dispatch path, when a device-planned open batch overflowed
+        its sticky shapes or a banded batch's entries reached its capacity
+        F (either may have truncated entries; the shapes or F grow
+        first), and when a per-spectrum sum reached 2^24."""
         if packed is None:
             packed = d["fused"].cpu().numpy()
         if d.get("nb_F") is not None:
@@ -1715,11 +1701,9 @@ class Scorer:
             if totmax >= d["nb_F"]:
                 # entries past F were dropped: grow F, redo the batch
                 self._nb.grow_F(totmax)
-                self.fused_reruns += 1
-                log.warning(
+                log.info(
                     "banded narrow stage-1 entry capacity %d exceeded (max "
-                    "%d); growing and re-running the batch via the "
-                    "two-dispatch path", d["nb_F"], totmax,
+                    "%d); growing", d["nb_F"], totmax,
                 )
                 return None
         ost = d.get("open_sticky")
@@ -1741,7 +1725,6 @@ class Scorer:
                     )
                     bad = True
             if bad:
-                d["overflowed"] = True
                 return None
         S_pad, Ksel = d["S_pad"], d["Ksel"]
         n_spec = d["n_spec"]

@@ -1,4 +1,4 @@
-"""The port on a CUDA device: the stage-1, row-sort and merge kernels
+"""The port on a CUDA device: the stage-1, row-sort and cluster-sort kernels
 against their plain versions on the card, and the whole narrow, banded,
 chimeric and open paths (fused and two-dispatch) and the Runner on the
 card against the CPU.
@@ -128,12 +128,18 @@ def test_narrow_path_card_matches_cpu(cuda, small):
 
 @pytest.mark.parametrize("B,F,block", [
     (3, 1, None), (7, 100, None), (64, 4096, None), (5, 32768, None),
-    (4, 70000, None), (6, 5000, 1024), (3, 40000, 4096),
+    (4, 70000, None), (6, 5000, 1024), (3, 40000, 5000),
+    # every cluster size the wrapper picks past 2^15 keys (3-8 slices of
+    # up to 2^14 keys), and 2-4 slices with the slice size forced
+    (3, 32769, None), (3, 53000, None), (3, 65536, None), (2, 90000, None),
+    (2, 110000, None), (2, 131072, None), (4, 3000, 1500), (4, 3000, 1000),
+    (4, 3001, 751),
 ])
 def test_sort_kernels_match_plain(cuda, B, F, block):
-    """One-pass rows up to 2^15 keys and the hierarchical path (block
-    sorts, flip/cross passes, merge kernel): bit-equal to the plain
-    version and to torch.sort, with sentinel keys and duplicates."""
+    """One-pass rows up to 2^15 keys (the row-sort kernel) and longer
+    rows, or rows past a forced slice size (the cluster kernel, one
+    launch): bit-equal to the plain version and to torch.sort, with
+    sentinel keys and duplicates."""
     rng = np.random.default_rng(B * 31 + F)
     x = rng.integers(-50, 50, size=(B, F)).astype(np.int32)
     x[:, F // 2:F // 2 + 7] = 2**31 - 1
@@ -141,13 +147,41 @@ def test_sort_kernels_match_plain(cuda, B, F, block):
     before = dict(pallas_sort.launches)
     got = pallas_sort.bitonic_sort_rows(xd, block=block)
     torch.cuda.synchronize()
-    assert pallas_sort.launches["row_sort"] == before["row_sort"] + 1
-    hier = (1 << max(F - 1, 0).bit_length()) > (block or pallas_sort._BLOCK_MAX)
-    assert (pallas_sort.launches["bitonic_merge"]
-            > before["bitonic_merge"]) == hier
+    long_row = F > min(block or pallas_sort._BLOCK_MAX, pallas_sort._BLOCK_MAX)
+    grew = {k: pallas_sort.launches[k] - before[k] for k in before}
+    assert grew == {"row_sort": int(not long_row),
+                    "cluster_sort": int(long_row)}
     want = pallas_sort.bitonic_sort_rows(torch.from_numpy(x), block=block)
     assert torch.equal(got.cpu(), want)
     assert torch.equal(got, torch.sort(xd, dim=1).values)
+
+
+@pytest.mark.parametrize("F", [1025, 3000, 8192, 8193, 20000, 32768])
+def test_cluster_sort_lowered_one_pass_limit(cuda, monkeypatch, F):
+    """With the one-pass limit lowered to 1024 (chip_smoke.py phase 7),
+    rows of the open search's widths go to the cluster kernel in 1-2
+    slices of up to 2^14 keys: bit-equal to the plain version and
+    torch.sort."""
+    monkeypatch.setattr(pallas_sort, "_BLOCK_MAX", 1024)
+    rng = np.random.default_rng(F)
+    x = _radix_keys("open", 8, F, rng)
+    xd = torch.from_numpy(x).to(cuda)
+    before = pallas_sort.launches["cluster_sort"]
+    got = pallas_sort.bitonic_sort_rows(xd)
+    torch.cuda.synchronize()
+    assert pallas_sort.launches["cluster_sort"] == before + 1
+    assert pallas_sort.cluster_shape(F)[0] == -(-F // 2**14)
+    assert torch.equal(got.cpu(), pallas_sort.cluster_sort_plain(
+        torch.from_numpy(x)))
+    assert torch.equal(got, torch.sort(xd, dim=1).values)
+
+
+def test_cluster_sort_refuses_more_than_8_slices(cuda):
+    """A slice size that needs more than 8 CTAs a row is refused on the
+    card (the CPU plain version takes any slice count)."""
+    x = torch.zeros((2, 4096), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="at most 8 CTAs"):
+        pallas_sort.cluster_sort(x, block=500)
 
 
 def _radix_keys(kind, B, F, rng):
@@ -187,20 +221,25 @@ def _radix_keys(kind, B, F, rng):
 @pytest.mark.parametrize("kind", ["int32_range", "equal", "sorted",
                                   "reversed", "open", "ties"])
 def test_row_sort_kernel_key_kinds(cuda, kind):
-    """The radix kernel on every key kind, at widths around its digit,
-    warp and thread-count edges and its keys-per-thread steps, up to
-    2^15 keys in one pass and 2^17 hierarchically: bit-equal to its
-    plain version and to torch.sort."""
+    """The radix kernels on every key kind, at widths around the row-sort
+    kernel's digit, warp and thread-count edges and its keys-per-thread
+    steps, up to 2^15 keys in one pass, and past it (the cluster kernel,
+    3 and 8 slices): bit-equal to the plain versions and to torch.sort."""
     rng = np.random.default_rng(len(kind))
     for B, F in ((5, 1), (4, 255), (4, 257), (3, 1023), (3, 1025),
                  (3, 2049), (3, 8193), (2, 20480), (2, 32767), (2, 32768),
-                 (2, 131072)):
+                 (2, 40000), (2, 131072)):
         x = torch.from_numpy(_radix_keys(kind, B, F, rng)).to(cuda)
+        before = dict(pallas_sort.launches)
         got = pallas_sort.bitonic_sort_rows(x)
         torch.cuda.synchronize()
+        long_row = F > pallas_sort._BLOCK_MAX
+        assert (pallas_sort.launches["cluster_sort"]
+                - before["cluster_sort"]) == int(long_row)
         assert torch.equal(got, torch.sort(x, dim=1).values), (kind, F)
-        if F <= pallas_sort._BLOCK_MAX:
-            assert torch.equal(got, pallas_sort.sort_rows_plain(x)), (kind, F)
+        plain = (pallas_sort.cluster_sort_plain(x.cpu()) if long_row
+                 else pallas_sort.sort_rows_plain(x.cpu()))
+        assert torch.equal(got.cpu(), plain), (kind, F)
 
 
 def test_open_path_card_matches_cpu(cuda, small, monkeypatch):
@@ -267,8 +306,8 @@ def _assert_same(a_tables, b_tables):
 @pytest.mark.parametrize("F", [None, 40000])
 def test_banded_card_matches_cpu(cuda, small, monkeypatch, F):
     """The banded narrow stage 1 (forced, bands of 64 peptides) on the
-    card: the row-sort kernel launched and, with F = 40,000 entries a
-    spectrum (rows past 2^15 keys), the merge kernel; every FeatureTable
+    card: the row-sort kernel launched or, with F = 40,000 entries a
+    spectrum (rows past 2^15 keys), the cluster kernel; every FeatureTable
     column equal to the CPU's. A first batch learns F."""
     db, spectra = small
     monkeypatch.setenv("SAGE_TPU_NARROW_BANDED", "1")
@@ -287,10 +326,9 @@ def test_banded_card_matches_cpu(cuda, small, monkeypatch, F):
         assert s.last_plan.get("banded") and s.last_plan["F"] >= (F or 0)
         grew = {k: pallas_sort.launches[k] - before[k] for k in before}
         if dev.type == "cuda":
-            assert grew["row_sort"] > 0
-            assert (grew["bitonic_merge"] > 0) == bool(F)
+            assert grew["cluster_sort" if F else "row_sort"] > 0
         else:
-            assert grew == {"row_sort": 0, "bitonic_merge": 0}
+            assert grew == {"row_sort": 0, "cluster_sort": 0}
     _assert_same(tables["cuda"], tables["cpu"])
 
 

@@ -198,18 +198,22 @@ def test_banded_overflow_takes_two_dispatch(setup, env):
 
 
 def test_banded_hierarchical_sort(setup, env, monkeypatch):
-    """F = 40,000 entries a spectrum: every entry row takes the
-    hierarchical sort (2^15-key blocks, then the merge's plain version);
-    the columns equal the candidate-major ones."""
-    merges = []
-    plain = tsort.merge_blocks_plain
-    monkeypatch.setattr(tsort, "merge_blocks_plain",
-                        lambda x, cb: merges.append(cb) or plain(x, cb))
+    """F = 40,000 entries a spectrum: every entry row takes the cluster
+    kernel's plain version (rows past 2^15 keys, 3 slices); the columns
+    equal the candidate-major ones."""
+    slices = []
+    plain = tsort.cluster_sort_plain
+
+    def spy(x, block=None):
+        slices.append(tsort.cluster_shape(x.shape[1], block)[0])
+        return plain(x, block)
+
+    monkeypatch.setattr(tsort, "cluster_sort_plain", spy)
     _j, ts = _scorers(setup)
     ts._narrow_banded_maybe(256)._F = 40000
     tt = ts.score_table(_spectra(tproc, setup[2]))
     assert ts.last_plan["banded"] and ts.last_plan["F"] == 40000
-    assert merges and set(merges) == {tsort._BLOCK_MAX}
+    assert slices and set(slices) == {3}
     env.setenv("SAGE_TPU_NARROW_BANDED", "0")
     _j, ts0 = _scorers(setup)
     assert_tables_equal(ts0.score_table(_spectra(tproc, setup[2])), tt)

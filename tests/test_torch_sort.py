@@ -1,10 +1,11 @@
 """The port's row sort (the plain PyTorch versions of the CUDA kernels in
-``csrc/row_sort.cu`` and ``csrc/bitonic_merge.cu``) against ``np.sort``
+``csrc/row_sort.cu`` and ``csrc/cluster_sort.cu``) against ``np.sort``
 and against sage_tpu's Pallas kernels in interpret mode, on the CPU:
-one-pass rows and the hierarchical path with the block size forced,
-non-power-of-two widths, ragged batches, sentinel tails, duplicates and
-negatives, the full int32 range, and the open search's packed keys. On
-i32 keys every correct sort gives one output, so all must be equal."""
+one-pass rows and the cluster path, with its slice size forced so that
+small rows take 2-8 slices, non-power-of-two widths, ragged batches,
+sentinel tails, duplicates and negatives, the full int32 range, and the
+open search's packed keys. On i32 keys every correct sort gives one
+output, so all must be equal."""
 
 import jax  # noqa: F401  (conftest keeps JAX on the CPU)
 import numpy as np
@@ -53,35 +54,33 @@ def test_plain_sort_matches_npsort_and_sage_tpu(B, F, block, keys):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+def _spy_slices(monkeypatch):
+    """Record the slice count of every call of the cluster kernel's plain
+    version."""
+    calls = []
+    real = pallas_sort.cluster_sort_plain
+
+    def spy(v, block=None):
+        calls.append(pallas_sort.cluster_shape(v.shape[1], block)[0])
+        return real(v, block)
+
+    monkeypatch.setattr(pallas_sort, "cluster_sort_plain", spy)
+    return calls
+
+
 @pytest.mark.parametrize("F", [1, 3, 4096, 40000])
 def test_plain_sort_one_pass_limit(F, monkeypatch):
     """Rows up to the card's one-pass limit (2^15) sort in one pass;
-    longer rows take the hierarchical path with 2^15-key blocks. The
-    block size never changes the output."""
+    longer rows take the cluster kernel's plain version, in slices of
+    2^14 keys (3 at F = 40,000). The slice size never changes the
+    output."""
     x = _keys("wide", 2, F, F)
-    calls = []
-    real = pallas_sort.merge_blocks_plain
-    monkeypatch.setattr(pallas_sort, "merge_blocks_plain",
-                        lambda v, cb: calls.append(cb) or real(v, cb))
+    calls = _spy_slices(monkeypatch)
     got = pallas_sort.bitonic_sort_rows(torch.from_numpy(x))
     np.testing.assert_array_equal(got.numpy(), np.sort(x, axis=1))
-    assert calls == ([pallas_sort._BLOCK_MAX] if F > pallas_sort._BLOCK_MAX
-                     else [])
+    assert calls == ([3] if F > pallas_sort._BLOCK_MAX else [])
     small = pallas_sort.bitonic_sort_rows(torch.from_numpy(x), block=256)
     np.testing.assert_array_equal(small.numpy(), got.numpy())
-
-
-def test_sort_blocks_pads_in_place_of_device_memory():
-    """sort_blocks reads the pad key for positions past the row: a
-    ragged row sorted block-wise keeps every real key and fills the
-    padding with the pad key."""
-    x = _keys("wide", 3, 100, 5)
-    out = pallas_sort.sort_blocks(torch.from_numpy(x), 64, 128, SENT).numpy()
-    assert out.shape == (3, 128)
-    for r in range(3):
-        np.testing.assert_array_equal(out[r, :64], np.sort(x[r, :64]))
-        tail = np.sort(np.concatenate([x[r, 64:], np.full(28, SENT)]))
-        np.testing.assert_array_equal(out[r, 64:], tail)
 
 
 def test_use_pallas_sort_gate():
@@ -163,16 +162,59 @@ def test_radix_plain_matches_npsort_and_sage_tpu(kind, F):
     np.testing.assert_array_equal(
         pallas_sort.bitonic_sort_rows(torch.from_numpy(x)).numpy(), want)
 
+# widths past the one-pass limit: just past it, and the cluster sizes the
+# kernel picks (3, 4, 5 and 8 slices of up to 2^14 keys)
+CLUSTER_WIDTHS = [32769, 40000, 65536, 70000, 131072]
+
+
+@pytest.mark.parametrize("F", CLUSTER_WIDTHS)
+@pytest.mark.parametrize("kind", RADIX_KINDS + ["all_pad"])
+def test_cluster_plain_matches_npsort_and_sage_tpu(kind, F, monkeypatch):
+    """The cluster kernel's plain version (dealt slices, real-key count,
+    digit passes with cross-slice offsets, INT32_MAX tail) on every key
+    kind and on rows of INT32_MAX only: bit-equal to np.sort, and at
+    F <= 40,000 to sage_tpu's interpret-mode hierarchical sort;
+    bitonic_sort_rows takes it for these rows."""
+    if kind == "all_pad":
+        x = np.full((2, F), SENT, np.int32)
+    else:
+        x = _radix_keys(kind, 2, F, RADIX_KINDS.index(kind) * 17 + F)
+    got = pallas_sort.cluster_sort_plain(torch.from_numpy(x))
+    assert got.dtype == torch.int32 and got.shape == x.shape
+    np.testing.assert_array_equal(got.numpy(), np.sort(x, axis=1))
+    calls = _spy_slices(monkeypatch)
+    via = pallas_sort.bitonic_sort_rows(torch.from_numpy(x))
+    assert calls == [-(-F // 2**14)]
+    np.testing.assert_array_equal(via.numpy(), got.numpy())
+    if F <= 40000:
+        want = np.asarray(jax_sort(x, interpret=True))
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+SLICES = [2, 3, 5, 8]
+
+
+@pytest.mark.parametrize("slices", SLICES)
+@pytest.mark.parametrize("B,F,block,keys", CASES,
+                         ids=[f"{b}x{f}-{bl}-{k}" for b, f, bl, k in CASES])
+def test_cluster_plain_forced_slices(B, F, block, keys, slices, monkeypatch):
+    """The cases above with the slice size forced so that each row takes
+    2-8 slices: the cross-slice offsets at small widths; equal to
+    np.sort."""
+    x = _keys(keys, B, F, B * 7919 + F + slices)
+    block = -(-F // slices)
+    calls = _spy_slices(monkeypatch)
+    got = pallas_sort.bitonic_sort_rows(torch.from_numpy(x), block=block)
+    assert len(calls) == 1 and 2 <= calls[0] <= 8
+    np.testing.assert_array_equal(got.numpy(), np.sort(x, axis=1))
+
 
 @pytest.mark.parametrize("kind", RADIX_KINDS)
-def test_radix_blocks_with_virtual_pads(kind):
-    """sort_blocks over radix-sorted blocks: the hierarchical path's
-    2^k-key blocks with the pad key read past the row, and the
-    hierarchical sort built on them, equal np.sort for every key kind."""
+def test_cluster_plain_forced_slices_key_kinds(kind, monkeypatch):
+    """Every radix key kind at 3,000 keys a row with the one-pass limit
+    forced to 1,024 (3 slices): equal to np.sort."""
     x = _radix_keys(kind, 2, 3000, 7)
-    out = pallas_sort.sort_blocks(torch.from_numpy(x), 1024, 4096, SENT)
-    xp = np.concatenate([x, np.full((2, 1096), SENT, np.int32)], axis=1)
-    want = np.sort(xp.reshape(2, 4, 1024), axis=2).reshape(2, 4096)
-    np.testing.assert_array_equal(out.numpy(), want)
+    calls = _spy_slices(monkeypatch)
     got = pallas_sort.bitonic_sort_rows(torch.from_numpy(x), block=1024)
+    assert calls == [3]
     np.testing.assert_array_equal(got.numpy(), np.sort(x, axis=1))

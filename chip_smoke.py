@@ -1,7 +1,8 @@
 """Drive the PyTorch port on one CUDA card and check it: the Runner and
-the CLI from FASTA and spectrum files to results.sage.tsv, lfq.tsv and
-the HTML report, and the narrow, banded, chimeric and open searches
-through the fused and the two-dispatch paths.
+the CLI from FASTA, mzML, MGF and Bruker .d files to results.sage.tsv,
+the parquet set, lfq.tsv and the HTML report, in one process and in
+two, and the narrow, banded, chimeric and open searches through the
+fused and the two-dispatch paths.
 
 Usage (from the repository root, on a machine with an NVIDIA H100):
 
@@ -10,6 +11,10 @@ Usage (from the repository root, on a machine with an NVIDIA H100):
 Phases, each of which fails the run when it fails (each prints its
 seconds):
 
+0. Host packages: whether pyarrow (the parquet writer), zstandard and
+   compression.zstd (the .d reader's codecs for compressed frames)
+   import. Without pyarrow phase 20 writes TSV and records its parquet
+   half as not run.
 1. Device: the card's name and power limit; exits non-zero without CUDA.
 2. Build: the three kernel sources (csrc/stage1_counts.cu,
    csrc/row_sort.cu, csrc/cluster_sort.cu) with nvcc, side by side,
@@ -26,6 +31,27 @@ seconds):
    the Runner's phase seconds, the search and whole-run spectra/s, the
    PSMs / peptides / proteins at 1% FDR and peak device memory; checks
    results.sage.tsv's header against the OutputWriter's columns.
+20. Bruker .d through the Runner (right after phase 11, on its Runner
+    and database: its parameters replaced, its phase seconds reset):
+    phase 11's 16,384 spectra written by ``synth_tdf`` as a ddaPASEF .d
+    (10 precursors a frame, each over 4-12 scans of 2 PASEF frames, an
+    MS1 frame before each block, m/z on the TOF calibration's grid,
+    type-0 frames), searched with parquet output (TSV without pyarrow).
+    The stage-1 counter is set to 0 just before the run and must be > 0
+    after; over 0.9 of the PSMs within 20.5 ppm. Prints the TDF reader's
+    seconds (read_s), the whole-run and search spectra/s and the PSMs at
+    1% FDR. Then the first 512 precursors as their own .d through the
+    card Runner and the CPU Runner (a copy of phase 11's on the CPU):
+    results.sage.parquet (or .tsv) byte-equal.
+21. Two processes on the card: phase 11's spectra as 3 mzML files,
+    ``python -m sage_tpu_torch`` twice with SAGE_TPU_COORDINATOR on a
+    free localhost port, SAGE_TPU_NUM_PROCS=2 and SAGE_TPU_PROC_ID=0/1
+    (gloo; both on cuda:0; each builds its own database), each with a
+    time limit, against phase 11's Runner on the same files in this
+    process: results.sage.tsv byte-equal, process 1 writes nothing, and
+    each process's logged stage-1 launches > 0. Prints the processes'
+    seconds, their database builds and the gather's seconds (which
+    include the wait for the slower process).
 3. Narrow main path at full width: bench.py's workload (the same
    database, 2 batches of 8192 synthetic spectra, precursor +-20 ppm,
    fragment +-10 ppm) through
@@ -109,9 +135,10 @@ seconds):
     the batch gave it, and timed there beside its bound and the parent
     commit's whole long-row sort of the same rows.
 19. Banded against candidate-major (runs after 16): both stage 1s,
-    forced, on phase 15's batch at +-1.5, +-3 and +-6 Da precursor
-    windows (W = 4096, 8192, 16384; SAGE_TPU_OPEN_THRESHOLD raised so the
-    wider two stay narrow), each with +-10 ppm and +-0.5 Da fragments:
+    forced, on phase 15's batch at +-3 and +-6 Da precursor windows
+    (W = 8192, 16384; SAGE_TPU_OPEN_THRESHOLD raised so they stay
+    narrow; phases 15 and 16 race the two at +-1.5 Da, W = 4096), each
+    with +-10 ppm and +-0.5 Da fragments:
     every column equal, spectra/s of each path twice (banded,
     candidate-major, candidate-major, banded), and one profiled batch of
     each for the stage 1's device ms and the device's busy time. Prints
@@ -135,9 +162,10 @@ seconds):
 10. The ``kernels`` JSON line, the nvidia-smi line, and the final
     ``{"ok": true, ...}`` line. ``launches`` is each kernel's count on
     its main path (phase 3, 6 or 16), ``launches_by_path`` its count on
-    each path that runs it (stage-1: phases 3, 11, 13, 17 and phase 15's
-    candidate-major run; row sort: 6, 14, 15, 16; cluster sort: 16, 6,
-    14; phases 15 and 16 count their banded runs). The cluster kernel's
+    each path that runs it (stage-1: phases 3, 11, 20, 21 (both
+    processes summed), 13, 17 and phase 15's candidate-major run; row
+    sort: 6, 14, 15, 16; cluster sort: 16, 6, 14; phases 15 and 16 count
+    their banded runs). The cluster kernel's
     times are phase 16's; phase 7's lowered-limit run adds
     ``forced_launches``.
 
@@ -196,9 +224,9 @@ BANDED_PREC = ("da", -1.5, 1.5)
 BANDED_BATCH = 8192
 CHIMERA_SPECTRA = 2048
 # phase 19: precursor windows (+-Da) that put the batch's widest window at
-# W = 4096, 8192 and 16384 candidates, each with a ppm and a Da fragment
-# tolerance
-CROSSOVER_PREC = (1.5, 3.0, 6.0)
+# W = 8192 and 16384 candidates, each with a ppm and a Da fragment
+# tolerance (phases 15 and 16 race both stage 1s at W = 4096)
+CROSSOVER_PREC = (3.0, 6.0)
 CROSSOVER_FRAG = (("ppm", -10.0, 10.0), ("da", -0.5, 0.5))
 # phase 18's inputs: (proteins, MS2 scans, MS1 scans) of each of two files
 LFQ_SMALL = (300, 512, 128)
@@ -236,19 +264,12 @@ def nvidia_smi_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps):
-    import torch
+def exec_ms(fn, reps):
+    """Mean device ms of ``fn`` over ``reps`` calls after a warm one, by
+    the port's meter (``devprof.amortized_exec_s``: CUDA events)."""
+    from sage_tpu_torch.utils.devprof import amortized_exec_s
 
-    fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / reps
+    return 1e3 * amortized_exec_s(fn, reps)
 
 
 def segment_work(ints, W, Lc, Z, S, Pk, B):
@@ -589,10 +610,10 @@ def narrow_phases(torch, tsearch, pallas_stage1, db, spectra, dev, times):
             def kern():
                 return pallas_stage1.stage1_counts(lad, peaks, ints_d, **kw)
 
-            km1 = cuda_ms(kern, reps)
-            pm = cuda_ms(lambda: pallas_stage1.stage1_counts_plain(
+            km1 = exec_ms(kern, reps)
+            pm = exec_ms(lambda: pallas_stage1.stage1_counts_plain(
                 lad, peaks, ints_d, **kw), 3)
-            km2 = cuda_ms(kern, reps)
+            km2 = exec_ms(kern, reps)
             km = (km1 + km2) / 2
             nb, ops = segment_work(ints_d.cpu().numpy(), kw["W"], kw["Lc"],
                                    kw["Z"], S, peaks.shape[1], peaks.shape[0])
@@ -880,11 +901,11 @@ def time_sorts(torch, pallas_sort, xs, what, reps=20):
     nb_t = ops_t = 0.0
     for x in xs:
         R_x, F_x = x.shape
-        km1 = cuda_ms(lambda: pallas_sort.bitonic_sort_rows(x), reps)
-        lm = cuda_ms(lambda: torch.sort(x, dim=1), reps)
-        km2 = cuda_ms(lambda: pallas_sort.bitonic_sort_rows(x), reps)
+        km1 = exec_ms(lambda: pallas_sort.bitonic_sort_rows(x), reps)
+        lm = exec_ms(lambda: torch.sort(x, dim=1), reps)
+        km2 = exec_ms(lambda: pallas_sort.bitonic_sort_rows(x), reps)
         km = (km1 + km2) / 2
-        pm = cuda_ms(lambda: pallas_sort.sort_rows_plain(x), 2)
+        pm = exec_ms(lambda: pallas_sort.sort_rows_plain(x), 2)
         nb, ops = sort_work(R_x, F_x)
         bm, by = bound_ms(nb, ops, INT32_OPS_PER_S)
         unranked = float((x == 2**31 - 1).float().mean())
@@ -921,12 +942,12 @@ def time_cluster(torch, pallas_sort, xs, what, block=None, parent=None,
              library_ms=0.0)
     nb_t = ops_t = 0.0
     for x in xs:
-        km1 = cuda_ms(lambda: pallas_sort.cluster_sort(x, block), reps)
-        t["library_ms"] += cuda_ms(lambda: torch.sort(x, dim=1), reps)
-        km2 = cuda_ms(lambda: pallas_sort.cluster_sort(x, block), reps)
+        km1 = exec_ms(lambda: pallas_sort.cluster_sort(x, block), reps)
+        t["library_ms"] += exec_ms(lambda: torch.sort(x, dim=1), reps)
+        km2 = exec_ms(lambda: pallas_sort.cluster_sort(x, block), reps)
         t["ms"] += (km1 + km2) / 2
         if block is None:
-            t["plain_ms"] += cuda_ms(
+            t["plain_ms"] += exec_ms(
                 lambda: pallas_sort.cluster_sort_plain(x), 1)
         nb, ops = sort_work(*x.shape)
         nb_t += nb
@@ -1057,8 +1078,8 @@ def search_config(fasta, paths, **extra):
 
 def runner_phase(torch, pallas_stage1, tmp, times):
     """Phase 11: the Runner on bench.py's database and 16,384 of its
-    spectra. Returns the record, the Runner's database and bench.py's
-    3 x 8192 synthetic spectra."""
+    spectra. Returns the record, the Runner (phases 20 and 21 run it
+    again) and bench.py's 3 x 8192 synthetic spectra."""
     from sage_tpu_torch.bench_baseline import synth_fasta, synth_spectra
     from sage_tpu_torch.chem.mass import PROTON
     from sage_tpu_torch.pipeline.input import build_search
@@ -1129,7 +1150,261 @@ def runner_phase(torch, pallas_stage1, tmp, times):
                q_protein=result["q_protein"],
                q_protein_group=result["q_protein_group"],
                psms_within_20ppm=near, decoy_share=decoys)
-    return rec, db, spectra
+    return rec, runner, spectra
+
+
+def host_packages_phase(times):
+    """Phase 0: whether the host packages that the .d reader (a zstd
+    codec) and the parquet writer (pyarrow) import are present."""
+    import importlib
+
+    found = {}
+    with Phase("0_host_packages", times):
+        for name in ("pyarrow", "zstandard", "compression.zstd"):
+            try:
+                mod = importlib.import_module(name)
+                found[name] = getattr(mod, "__version__", "present")
+            except ImportError:
+                found[name] = None
+        log("# host packages: " + ", ".join(
+            f"{k} {v or 'absent'}" for k, v in found.items()))
+    return found
+
+
+def rerun(runner, search, out_dir, **changes):
+    """Run phase 11's Runner again on ``changes`` of its parameters: a
+    fresh output list and directory, its phase accumulators and start
+    time reset (``run()`` keeps no other state between calls)."""
+    import dataclasses
+
+    os.makedirs(out_dir, exist_ok=True)
+    runner.parameters = dataclasses.replace(
+        search, output_directory=out_dir, output_paths=[], **changes)
+    runner.phases = {k: 0.0 for k in runner.phases}
+    runner.start = time.monotonic()
+    return runner.run()
+
+
+def tdf_phase(torch, pallas_stage1, runner, spectra, tmp, pyarrow, times):
+    """Phase 20: phase 11's 16,384 spectra as a synthetic ddaPASEF .d
+    through phase 11's Runner (parquet output when pyarrow imports),
+    then its first 512 precursors as their own .d on the card and on the
+    CPU."""
+    import copy
+
+    from sage_tpu_torch.bench_baseline import synth_tdf
+    from sage_tpu_torch.pipeline.runner import SCORE_BATCH
+
+    n_spec = 2 * SCORE_BATCH
+    search = runner.parameters
+    out_name = "results.sage.parquet" if pyarrow else "results.sage.tsv"
+    rec = dict(parquet="run" if pyarrow else "not run: pyarrow absent")
+    with Phase("20_runner_tdf", times):
+        if not pyarrow:
+            log("# phase 20: pyarrow absent, so the parquet half does not "
+                "run; the .d half writes TSV")
+        d = os.path.join(tmp, "bench.d")
+        t0 = time.perf_counter()
+        synth_tdf(d, spectra[8192:8192 + n_spec])
+        log(f"# .d: {n_spec} precursors, 10 a frame, 2 PASEF frames each, "
+            f"MS1 frames between; {os.path.getsize(d + '/analysis.tdf_bin') / 2**20:.1f} "
+            f"MiB of frames written in {time.perf_counter() - t0:.2f} s")
+        out_dir = os.path.join(tmp, "tdf_out")
+        pallas_stage1.launches = 0
+        t0 = time.perf_counter()
+        result = rerun(runner, search, out_dir, mzml_paths=[d],
+                       parquet=bool(pyarrow))
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = pallas_stage1.launches
+        ph = result["phases"]
+        c = result["features"].columns
+        near = float((np.abs(c["delta_mass"]) <= 20.5).mean())
+        log(f"# Runner on the .d: {n_spec} spectra, run() {run_s:.2f} s = "
+            f"{n_spec / run_s:.1f} spectra/s whole run; read (TDF reader) "
+            f"{ph['read_s']:.3f} s; search {ph['search_s']:.3f} s = "
+            f"{n_spec / ph['search_s']:.1f} spectra/s; write {ph['write_s']:.3f}"
+            f" s ({out_name}); stage1_counts launches {launches}; "
+            f"{result['q_spectrum']} PSMs at 1% FDR; {near:.3f} of the PSMs "
+            f"within 20 ppm; ion mobility {float(c['ims'].min()):.3f}-"
+            f"{float(c['ims'].max()):.3f}; phases {ph}")
+        assert launches > 0, "the .d run did not launch the stage-1 kernel"
+        assert near > 0.9, near
+        assert os.path.exists(os.path.join(out_dir, out_name))
+        if pyarrow:
+            assert not os.path.exists(os.path.join(out_dir,
+                                                   "results.sage.tsv"))
+        rec.update(spectra=n_spec, run_s=run_s, phases=ph,
+                   whole_run_spectra_per_s=n_spec / run_s,
+                   search_spectra_per_s=n_spec / ph["search_s"],
+                   read_s=ph["read_s"], write_s=ph["write_s"],
+                   stage1_launches=launches, q_spectrum=result["q_spectrum"],
+                   psms=len(c["ims"]), psms_within_20ppm=near)
+        rec.update(ms1_read(d))
+
+        # the first 512 precursors: card against CPU, the same database
+        small = os.path.join(tmp, "small.d")
+        synth_tdf(small, spectra[8192:8192 + 512])
+        outs = {}
+        cpu_runner = copy.copy(runner)
+        cpu_runner.device = torch.device("cpu")
+        for dev, r in (("card", runner), ("cpu", cpu_runner)):
+            outs[dev] = os.path.join(tmp, f"small_{dev}")
+            t0 = time.perf_counter()
+            rerun(r, search, outs[dev], mzml_paths=[small],
+                  parquet=bool(pyarrow))
+            rec[f"small_{dev}_s"] = time.perf_counter() - t0
+        with open(os.path.join(outs["card"], out_name), "rb") as a, \
+                open(os.path.join(outs["cpu"], out_name), "rb") as b:
+            got = a.read()
+            assert got == b.read(), f"{out_name}: card and CPU differ"
+        log(f"# 512 precursors as their own .d: {out_name} byte-equal on "
+            f"the card ({rec['small_card_s']:.1f} s) and the CPU "
+            f"({rec['small_cpu_s']:.1f} s), {len(got)} bytes")
+    runner.parameters = search
+    return rec
+
+
+def ms1_read(d):
+    """The TDF reader on the .d without and with MS1 (``requires_ms1``, as
+    ``quant.lfq`` asks): the second runs ``fast_centroid`` on every MS1
+    frame, timed on its own through a wrapper."""
+    from sage_tpu_torch.io import tdf
+    from sage_tpu_torch.io.cloudpath import read_spectra
+
+    t0 = time.perf_counter()
+    ms2 = read_spectra(d)
+    ms2_s = time.perf_counter() - t0
+    plain, spent, peaks = tdf.fast_centroid, [0.0], [0]
+
+    def timed(mz, *args, **kwargs):
+        t = time.perf_counter()
+        out = plain(mz, *args, **kwargs)
+        spent[0] += time.perf_counter() - t
+        peaks[0] += len(mz)
+        return out
+
+    tdf.fast_centroid = timed
+    try:
+        t0 = time.perf_counter()
+        both = read_spectra(d, requires_ms1=True)
+        both_s = time.perf_counter() - t0
+    finally:
+        tdf.fast_centroid = plain
+    ms1 = [s for s in both if s.ms_level == 1]
+    assert len(ms1) > 0 and len(both) - len(ms1) == len(ms2)
+    log(f"# TDF reader on the .d: MS2 only {ms2_s:.3f} s; with MS1 "
+        f"{both_s:.3f} s, of which fast_centroid {spent[0]:.3f} s on "
+        f"{len(ms1)} MS1 frames ({peaks[0]} peaks in, "
+        f"{sum(len(s.mz) for s in ms1)} out; the synthetic frames are "
+        f"sparse)")
+    return dict(read_ms2_only_s=ms2_s, read_with_ms1_s=both_s,
+                fast_centroid_s=spent[0], ms1_frames=len(ms1),
+                ms1_peaks_in=peaks[0])
+
+
+def multiprocess_phase(torch, pallas_stage1, runner, spectra, tmp, times):
+    """Phase 21: phase 11's spectra as 3 mzML files, searched by two
+    ``python -m sage_tpu_torch`` processes on the one card (gloo over
+    localhost) and by phase 11's Runner in this process; the two
+    results.sage.tsv must be byte-equal, process 1 must write nothing and
+    both processes must launch the stage-1 kernel."""
+    import re
+    import socket
+
+    from sage_tpu_torch.chem.mass import PROTON
+    from sage_tpu_torch.pipeline.runner import SCORE_BATCH
+
+    n_spec = 2 * SCORE_BATCH
+    search = runner.parameters
+    rec = {}
+    with Phase("21_multiprocess", times):
+        part = -(-n_spec // 3)
+        paths = []
+        for i in range(3):
+            paths.append(os.path.join(tmp, f"part{i}.mzML"))
+            lo = 8192 + i * part
+            write_mzml(paths[-1], spectra[lo:min(lo + part, 8192 + n_spec)],
+                       PROTON)
+        cfg = search_config(search.database.fasta, paths)
+        cfg_path = os.path.join(tmp, "mp.json")
+        with open(cfg_path, "w") as f:
+            json.dump(cfg, f)
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            port = sk.getsockname()[1]
+        root = os.path.dirname(os.path.abspath(__file__))
+        procs, logs = [], []
+        t0 = time.perf_counter()
+        for rank in range(2):
+            # each process's log goes to a file: the pipes stay unread
+            # while this process runs its own search
+            logs.append(open(os.path.join(tmp, f"mp_rank{rank}.log"),
+                             "w+"))
+            env = dict(os.environ)
+            env["PYTHONPATH"] = os.pathsep.join(
+                [root] + [p for p in env.get("PYTHONPATH", "").split(
+                    os.pathsep) if p])
+            env.update(SAGE_TPU_COORDINATOR=f"127.0.0.1:{port}",
+                       SAGE_TPU_NUM_PROCS="2", SAGE_TPU_PROC_ID=str(rank))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "sage_tpu_torch", cfg_path, "-o",
+                 os.path.join(tmp, f"mp_rank{rank}"),
+                 "--disable-telemetry-i-dont-want-to-improve-sage"],
+                cwd=root, env=env, stdout=logs[-1],
+                stderr=subprocess.STDOUT))
+        try:
+            # one process, here, while the two build their databases
+            single = os.path.join(tmp, "mp_single")
+            pallas_stage1.launches = 0
+            t1 = time.perf_counter()
+            rerun(runner, search, single, mzml_paths=paths)
+            rec["single_s"] = time.perf_counter() - t1
+            rec["single_stage1_launches"] = pallas_stage1.launches
+            runner.parameters = search
+            for p in procs:
+                p.wait(timeout=600)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        rec["processes_s"] = time.perf_counter() - t0
+        outs = []
+        for f in logs:
+            f.seek(0)
+            outs.append(f.read())
+            f.close()
+        for rank, (p, err) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                log(err[-4000:])
+            assert p.returncode == 0, f"process {rank} exited {p.returncode}"
+        launches, gather, db_s = [], [], []
+        for rank, err in enumerate(outs):
+            m = re.search(r"kernel launches: stage1_counts=(\d+)", err)
+            g = re.search(r"phase seconds: .*\bgather=([0-9.]+)", err)
+            b = re.search(r"phase seconds: db_build=([0-9.]+)", err)
+            assert m and g and b, err[-4000:]
+            launches.append(int(m.group(1)))
+            gather.append(float(g.group(1)))
+            db_s.append(float(b.group(1)))
+        assert all(n > 0 for n in launches), launches
+        assert rec["single_stage1_launches"] > 0
+        assert os.listdir(os.path.join(tmp, "mp_rank1")) == []
+        name = "results.sage.tsv"
+        with open(os.path.join(tmp, "mp_rank0", name), "rb") as a, \
+                open(os.path.join(single, name), "rb") as b:
+            got = a.read()
+            assert got == b.read(), f"{name}: 2 processes and 1 differ"
+        rec.update(stage1_launches=launches, gather_s=gather,
+                   db_build_s=db_s, rows=got.count(b"\n") - 1)
+        log(f"# two processes on the card over 3 files: both exit 0 in "
+            f"{rec['processes_s']:.1f} s (each builds its database: "
+            f"{db_s} s); stage1_counts launches {launches}; the gather "
+            f"{gather} s; results.sage.tsv byte-equal to one process in "
+            f"this one ({rec['single_s']:.1f} s, {rec['rows']} rows); "
+            f"process 1 wrote nothing")
+    return rec
 
 
 def cli_phase(torch, tmp, times):
@@ -1495,9 +1770,9 @@ def crossover_phase(torch, mods, db, spectra, times):
     """Phase 19: where the banded stage 1 beats the candidate-major one on
     this card. Phase 15's 8192-spectrum batch, after a warm-up batch and
     one untimed run of the batch itself (so F is learned and no batch is
-    redone), at precursor windows of +-1.5, +-3 and +-6 Da (the batch's
-    widest window at W = 4096, 8192 and 16384 candidates; the last two
-    kept in the narrow regime by raising SAGE_TPU_OPEN_THRESHOLD), each
+    redone), at precursor windows of +-3 and +-6 Da (the batch's widest
+    window at W = 8192 and 16384 candidates, kept in the narrow regime by
+    raising SAGE_TPU_OPEN_THRESHOLD), each
     with +-10 ppm and +-0.5 Da fragments. Both paths are forced
     (SAGE_TPU_NARROW_BANDED=1 and =0) and timed in the order banded,
     candidate-major, candidate-major, banded; every column must be equal.
@@ -1933,7 +2208,9 @@ def main():
     from sage_tpu_torch.ops import open_search as topen
     from sage_tpu_torch.ops import search as tsearch
 
+    t_start = time.perf_counter()
     times = {}
+    host_packages = host_packages_phase(times)
     # ---- 1. device
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1949,8 +2226,14 @@ def main():
         build_s = build_kernels(_cuda_build)
 
     with tempfile.TemporaryDirectory() as tmp:
-        runner_rec, db, spectra = runner_phase(torch, pallas_stage1, tmp,
-                                               times)
+        runner_rec, runner, spectra = runner_phase(torch, pallas_stage1,
+                                                   tmp, times)
+        tdf_rec = tdf_phase(torch, pallas_stage1, runner, spectra, tmp,
+                            host_packages["pyarrow"], times)
+        mp_rec = multiprocess_phase(torch, pallas_stage1, runner, spectra,
+                                    tmp, times)
+        db = runner.database
+        del runner
         narrow, k_stage1, narrow_fused = narrow_phases(
             torch, tsearch, pallas_stage1, db, spectra, dev, times)
         open_rec, k_sort, open_fused = open_phases(
@@ -1992,6 +2275,8 @@ def main():
     k_stage1["launches_by_path"] = {
         "narrow_fused": k_stage1["launches"],
         "runner": runner_rec["stage1_launches"],
+        "runner_tdf": tdf_rec["stage1_launches"],
+        "multiprocess": sum(mp_rec["stage1_launches"]),
         "two_dispatch_narrow": td_narrow["launches"],
         "chimera": chim["launches"],
         "banded_reference": banded["reference_stage1_launches"]}
@@ -2033,13 +2318,17 @@ def main():
     record = {
         "device": kind, "nvidia_smi": smi, "proteins": PROTEINS,
         "peptides": n_pep, "fragments": n_frag,
-        "kernel_build_s": build_s, "phase_s": times, "runner": runner_rec,
+        "kernel_build_s": build_s, "phase_s": times,
+        "host_packages": host_packages, "runner": runner_rec,
+        "runner_tdf": tdf_rec, "multiprocess": mp_rec,
         "narrow": narrow, "open": open_rec, "cli": cli_rec,
         "two_dispatch_narrow": td_narrow, "two_dispatch_open": td_open,
         "banded": banded, "banded_lowres": lowres, "crossover": crossover,
         "chimera": chim,
         "lfq": lfq_rec, **kernels,
     }
+    record["total_s"] = time.perf_counter() - t_start
+    log(f"# chip_smoke: {record['total_s']:.1f} s in all, the build included")
     log("# record: " + json.dumps(record, default=str))
     print(json.dumps(kernels), flush=True)
     print(smi, flush=True)

@@ -8,12 +8,14 @@ package imports torch and numpy only; it never imports jax or
 
 Covered so far: the command line (``python -m sage_tpu_torch
 config.json``) and its ``Runner``: database build (with the prefilter
-mode), mzML / MGF reading, spectrum processing, the narrow and open
-searches (``Scorer.score_table`` / ``Scorer.score_stream``) through the
-fused and the two-dispatch paths, RT / mobility prediction, LDA
-rescoring, FDR, protein grouping, TMT quant and the TSV / PIN / JSON
-outputs. Regimes not ported yet raise ``NotImplementedError`` naming
-their ROADMAP item.
+mode), mzML / MGF / Bruker timsTOF .d reading, spectrum processing, the
+narrow, banded, chimeric and open searches (``Scorer.score_table`` /
+``Scorer.score_stream``) through the fused and the two-dispatch paths,
+RT / mobility prediction, LDA rescoring, FDR, protein grouping, TMT and
+label-free quant, the TSV / PIN / parquet / JSON outputs and the HTML
+report, in one process or several (``maybe_init_distributed``). A mesh
+of more than one device is not ported yet and raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 __version__ = "0.1.0"
@@ -23,6 +25,10 @@ __all__ = [
     "IndexedDatabase",
     "Scorer",
     "SearchParams",
+    "Runner",
+    "maybe_init_distributed",
+    "build_search",
+    "load_config",
     "save_database",
     "load_database",
 ]
@@ -39,4 +45,16 @@ def __getattr__(name):
         from .ops import search
 
         return getattr(search, name)
+    if name == "Runner":
+        from .pipeline.runner import Runner
+
+        return Runner
+    if name == "maybe_init_distributed":
+        from .parallel.multihost import maybe_init_distributed
+
+        return maybe_init_distributed
+    if name in ("build_search", "load_config"):
+        from .pipeline import input as _input
+
+        return getattr(_input, name)
     raise AttributeError(name)

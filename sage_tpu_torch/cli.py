@@ -91,7 +91,7 @@ def main(argv=None) -> int:
     runner = Runner(search)
     result = runner.run()
     print(json.dumps(search.to_json_dict(), indent=2))
-    if not args.disable_telemetry:
+    if not args.disable_telemetry and runner.process_id == 0:
         from .pipeline.telemetry import Telemetry
 
         Telemetry(

@@ -4,8 +4,8 @@ Parity with crates/sage-cloudpath/src/{lib,util}.rs:
 local paths and URLs normalize into a (scheme, path) pair (lib.rs:20-43);
 reads stream through transparent gzip when the name ends in gz/gzip
 (lib.rs:45-48); spectra dispatch on extension into mzML/MGF/Bruker-TDF
-parsers (util.rs:31-72; the Bruker-TDF reader is not ported yet and
-raises); Bruker `.d` names resolve to the parent
+parsers (util.rs:31-72; Bruker `.d` input reads local directories
+only, through ``io/tdf.py``); Bruker `.d` names resolve to the parent
 directory (lib.rs:52-63).
 
 Cloud backends: the reference uses the `object_store` crate for
@@ -198,10 +198,17 @@ def file_format(path: str) -> str:
     return "unidentified"
 
 
+def within_file_parallel(path: str) -> bool:
+    """util.rs:15-28 — TDF benefits from within-file parallelism."""
+    return file_format(path) == "tdf"
+
+
 def read_spectra(
     path: str,
     file_id: int = 0,
     signal_to_noise: Optional[int] = None,
+    requires_ms1: bool = False,
+    bruker_config: Optional[dict] = None,
 ):
     """Extension-dispatched spectrum reading (util.rs:59-72)."""
     fmt = file_format(path)
@@ -224,8 +231,12 @@ def read_spectra(
 
         return parse_mgf(read_text(path), file_id=file_id)
     if fmt == "tdf":
-        raise NotImplementedError(
-            f"Bruker timsTOF input ({path}) is not ported yet: io/tdf.py "
-            "waits (ROADMAP Queue 1 item 11)"
+        scheme, loc = to_url(path)
+        if scheme != "file":
+            raise RuntimeError(f"Bruker files must be local: {path}")
+        from .tdf import TdfReader
+
+        return TdfReader().parse(
+            loc, file_id, config=bruker_config, requires_ms1=requires_ms1
         )
     raise ValueError(f"unable to determine file format for {path!r}")

@@ -9,10 +9,12 @@ grouping, TMT and label-free quant, and writes every output artifact.
 
 Counterpart of ``sage_tpu/pipeline/runner.py``: spectra are scored in
 large padded batches on one CUDA device (``ops/search.py``) and PSMs
-accumulate in a columnar FeatureTable. One process searches on one card.
-Regimes that are not ported yet raise ``NotImplementedError`` naming
-their ROADMAP item: multi-process and multi-device search (Queue 1 item
-12), parquet output and Bruker .d input (item 11).
+accumulate in a columnar FeatureTable. A multi-process run
+(``parallel/multihost.py``) gives each process a shard of the files and
+a card of its own, or one it shares; the results are gathered before
+the global stages and process 0 writes the outputs. A mesh of more than
+one device is not ported yet and raises ``NotImplementedError`` naming
+its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -32,8 +34,12 @@ from .. import protein_grouping
 from ..chem.fasta import Fasta
 from ..chem.mass import Tolerance
 from ..ml import lda, mobility_model, qvalue, retention_alignment, retention_model
+from ..ops import pallas_sort, pallas_stage1
 from ..ops.features import FeatureTable
 from ..ops.search import Scorer, SearchParams
+from ..parallel.multihost import (
+    gather_file_results, maybe_init_distributed, shard_paths,
+)
 from ..quant import tmt as tmt_mod
 from ..spectrum.processor import ProcessedSpectrum, SpectrumProcessor
 from .input import Search
@@ -57,30 +63,21 @@ def read_fasta(path: str, decoy_tag: str, generate_decoys: bool) -> Fasta:
     return Fasta.parse(contents, decoy_tag, generate_decoys)
 
 
-def _check_ported(p: Search) -> None:
-    """Raise for every configured regime that the port does not run yet,
-    before any work starts."""
-    if (
-        os.environ.get("SAGE_TPU_COORDINATOR")
-        or os.environ.get("SAGE_TPU_DISTRIBUTED") == "1"
-    ):
-        raise NotImplementedError(
-            "multi-process search (SAGE_TPU_COORDINATOR / "
-            "SAGE_TPU_DISTRIBUTED) is not ported yet (ROADMAP Queue 1 item 12)"
-        )
-    if p.parquet:
-        raise NotImplementedError(
-            "parquet output is not ported yet (ROADMAP Queue 1 item 11)"
-        )
+def _kernel_launches() -> dict:
+    return {"stage1_counts": pallas_stage1.launches, **pallas_sort.launches}
 
 
 class Runner:
     """``device``: where the search runs. Defaults to ``"cuda"``; with no
     CUDA device the caller must pass ``"cpu"`` explicitly (the plain
-    versions of every kernel then run)."""
+    versions of every kernel then run). In a multi-process run a process
+    with no ``device`` takes ``cuda:$LOCAL_RANK`` when LOCAL_RANK is set,
+    else ``cuda:{process_id % device_count}``, so that processes spread
+    over the cards or share one."""
 
     def __init__(self, parameters: Search, device=None):
-        _check_ported(parameters)
+        # the process group forms before any work starts
+        self.process_id, self.process_count = maybe_init_distributed()
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -88,6 +85,12 @@ class Runner:
                     "to run the plain versions on the CPU"
                 )
             device = "cuda"
+            if self.process_count > 1:
+                local = os.environ.get("LOCAL_RANK")
+                index = (int(local) if local is not None else
+                         self.process_id % torch.cuda.device_count())
+                device = f"cuda:{index}"
+                torch.cuda.set_device(index)
         self.device = torch.device(device)
         self.parameters = parameters
         self.start = time.monotonic()
@@ -166,7 +169,13 @@ class Runner:
         sn_level = p.quant.tmt_settings.level if p.quant.tmt_settings.sn else None
         sp = self._spectrum_processor()
         t0 = time.monotonic()
-        raw = read_spectra(path, file_id=file_id, signal_to_noise=sn_level)
+        raw = read_spectra(
+            path,
+            file_id=file_id,
+            signal_to_noise=sn_level,
+            requires_ms1=bool(p.quant.lfq),
+            bruker_config=p.bruker_config,
+        )
         t1 = time.monotonic()
         out = [sp.process(s) for s in raw]
         t2 = time.monotonic()
@@ -330,7 +339,7 @@ class Runner:
             )
         if (
             shape is None and self.device.type == "cuda"
-            and torch.cuda.device_count() > 1
+            and torch.cuda.device_count() > 1 and self.process_count == 1
         ):
             log.info(
                 "%d CUDA devices visible; multi-GPU search is not ported yet "
@@ -353,8 +362,11 @@ class Runner:
         if self.database is None:
             self.database = self._prefilter_database()
         scorer = self._make_scorer()
+        launches0 = _kernel_launches()
 
-        work = list(enumerate(p.mzml_paths))
+        # This process's shard of the input files (global file_ids kept);
+        # a single-process run sees every file.
+        work = shard_paths(p.mzml_paths, self.process_id, self.process_count)
         pieces = []  # (file_id, FeatureTable, tmt_quant, ms1)
         # File-batch parallelism: up to `--batch-size` files are parsed/
         # processed concurrently on worker threads (main.rs:118-121's
@@ -373,10 +385,6 @@ class Runner:
             for w, (file_id, path) in enumerate(work):
                 try:
                     spectra = futs.pop(w).result()
-                except NotImplementedError:
-                    # an input format the port does not read yet is not a
-                    # parse error: it stops the run
-                    raise
                 except Exception as e:  # noqa: BLE001
                     # a failed read skips the file (runner.rs:429-438)
                     log.error("error parsing %s: %s", path, e)
@@ -392,13 +400,29 @@ class Runner:
                     scorer, path, file_id, spectra=spectra
                 )
                 pieces.append((file_id, feats, quant, ms1))
+        launches = {k: v - launches0[k] for k, v in _kernel_launches().items()}
+        log.info(
+            "kernel launches: %s",
+            " ".join(f"{k}={v}" for k, v in launches.items()),
+        )
+        if self.process_count > 1:
+            # Cross-process merge before the global stages (the analog of
+            # the reference's parallel SageResults reduce,
+            # output.rs:21-41); every process goes on with the same full
+            # result set.
+            t_g = time.monotonic()
+            pieces = gather_file_results(pieces)
+            self._phase_add("gather_s", time.monotonic() - t_g)
+            log.info("gathered %d files' results from %d processes",
+                     len(pieces), self.process_count)
         all_quant = [q for _, _, quant, _ in pieces for q in quant]
         all_ms1: List[ProcessedSpectrum] = [
             m for _, _, _, ms1 in pieces for m in ms1
         ]
         features = FeatureTable.concat([t for _, t, _, _ in pieces])
-        # Deterministic PSM ids in (file, batch, row) order (unlike the
-        # reference's racy global counter, scoring.rs:163-166).
+        # Deterministic PSM ids in global (file, batch, row) order: the
+        # same for any process count (unlike the reference's racy global
+        # counter, scoring.rs:163-166).
         features.columns["psm_id"][:] = np.arange(
             1, len(features) + 1, dtype=np.int64
         )
@@ -462,31 +486,8 @@ class Runner:
         )
 
         t_w = time.monotonic()
-        writer = OutputWriter(self.database, p.output_directory)
-        p.output_paths.append(writer.write_features(features, filenames))
-        if p.annotate_matches:
-            p.output_paths.append(writer.write_fragments(features))
-        if all_quant:
-            p.output_paths.append(
-                writer.write_tmt(all_quant, p.quant.tmt, filenames)
-            )
-        if areas is not None:
-            p.output_paths.append(writer.write_lfq(areas, filenames))
-        if p.write_pin:
-            p.output_paths.append(writer.write_pin(features, filenames))
-        if p.write_report:
-            from .report import render_report
-
-            rp = os.path.join(p.output_directory, "sage.report.html")
-            with open(rp, "w") as f:
-                f.write(
-                    render_report(
-                        features, filenames, p.to_json_dict(), areas,
-                        version=p.version,
-                    )
-                )
-            p.output_paths.append(rp)
-        p.output_paths.append(writer.write_results_json(p.to_json_dict()))
+        if self.process_id == 0:
+            self._write_outputs(features, filenames, all_quant, areas)
 
         self._phase_add("write_s", time.monotonic() - t_w)
         run_time = int(time.monotonic() - self.start)
@@ -506,6 +507,66 @@ class Runner:
             "run_time": run_time,
             "phases": phases,
         }
+
+    def _write_outputs(self, features, filenames, all_quant, areas) -> None:
+        p = self.parameters
+        writer = OutputWriter(self.database, p.output_directory)
+        if p.parquet:
+            # the parquet set replaces the TSVs (runner.rs:597-640)
+            from . import parquet_out
+
+            reporter = None
+            n_rep = 0
+            if all_quant and p.quant.tmt is not None:
+                reporter = {(q.file_id, q.spec_id): q.peaks for q in all_quant}
+                n_rep = len(p.quant.tmt.headers())
+            out = os.path.join(p.output_directory, "results.sage.parquet")
+            p.output_paths.append(
+                parquet_out.write_features_parquet(
+                    out, self.database, features, filenames,
+                    reporter_ions=reporter, n_reporter=n_rep,
+                )
+            )
+            if p.annotate_matches:
+                p.output_paths.append(
+                    parquet_out.write_fragments_parquet(
+                        os.path.join(p.output_directory,
+                                     "matched_fragments.sage.parquet"),
+                        features,
+                    )
+                )
+            if areas is not None:
+                p.output_paths.append(
+                    parquet_out.write_lfq_parquet(
+                        os.path.join(p.output_directory, "lfq.parquet"),
+                        self.database, areas, filenames,
+                    )
+                )
+        else:
+            p.output_paths.append(writer.write_features(features, filenames))
+            if p.annotate_matches:
+                p.output_paths.append(writer.write_fragments(features))
+            if all_quant:
+                p.output_paths.append(
+                    writer.write_tmt(all_quant, p.quant.tmt, filenames)
+                )
+            if areas is not None:
+                p.output_paths.append(writer.write_lfq(areas, filenames))
+        if p.write_pin:
+            p.output_paths.append(writer.write_pin(features, filenames))
+        if p.write_report:
+            from .report import render_report
+
+            rp = os.path.join(p.output_directory, "sage.report.html")
+            with open(rp, "w") as f:
+                f.write(
+                    render_report(
+                        features, filenames, p.to_json_dict(), areas,
+                        version=p.version,
+                    )
+                )
+            p.output_paths.append(rp)
+        p.output_paths.append(writer.write_results_json(p.to_json_dict()))
 
     def spectrum_fdr(self, features: FeatureTable) -> int:
         """runner.rs:280-291: LDA with heuristic fallback, then sort by

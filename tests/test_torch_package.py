@@ -44,7 +44,13 @@ def test_imports_with_jax_and_sage_tpu_blocked():
         "import sage_tpu_torch.bench_baseline\n"
         "import sage_tpu_torch.index.builder\n"
         "import sage_tpu_torch.pipeline.runner\n"
+        "import sage_tpu_torch.pipeline.parquet_out\n"
+        "import sage_tpu_torch.io.tdf\n"
+        "import sage_tpu_torch.parallel.multihost\n"
+        "import sage_tpu_torch.utils.devprof\n"
         "import sage_tpu_torch.cli\n"
+        "from sage_tpu_torch import (Runner, build_search, load_config,\n"
+        "    maybe_init_distributed)\n"
         "assert 'jax' not in [m.split('.')[0] for m in sys.modules"
         " if sys.modules[m] is not None]\n"
         "print('ok')\n"
@@ -87,17 +93,15 @@ def test_scorer_without_device_raises_when_cuda_absent(monkeypatch):
 
 # the Runner's regimes that are not ported yet, each with its ROADMAP item
 _RUNNER_REGIMES = {
-    "parquet": "Queue 1 item 11", "bruker_d": "Queue 1 item 11",
-    "mesh_shape": "Queue 1 item 12", "distributed": "Queue 1 item 12",
+    "mesh_shape": "Queue 1 item 12",
 }
 
 
 @pytest.mark.parametrize("regime", sorted(_RUNNER_REGIMES))
 def test_out_of_slice_regimes_raise(regime, monkeypatch, tmp_path):
     """Each regime that is not ported yet raises NotImplementedError
-    naming its ROADMAP item; none falls back: the Runner's parquet
-    output, Bruker .d input, a mesh of more than one device and a
-    multi-process run."""
+    naming its ROADMAP item; none falls back: a mesh of more than one
+    device (parallel/sharding.py)."""
     from sage_tpu_torch.pipeline.input import build_search
     from sage_tpu_torch.pipeline.runner import Runner
 
@@ -107,17 +111,23 @@ def test_out_of_slice_regimes_raise(regime, monkeypatch, tmp_path):
            "precursor_tol": {"ppm": [-20, 20]},
            "fragment_tol": {"ppm": [-10, 10]},
            "mzml_paths": [str(tmp_path / "run.mzML")]}
-    kw = {}
-    if regime == "parquet":
-        kw[regime] = True
-    elif regime == "bruker_d":
-        (tmp_path / "run.d").mkdir()
-        cfg["mzml_paths"] = [str(tmp_path / "run.d")]
-    elif regime == "mesh_shape":
-        monkeypatch.delenv("SAGE_TPU_MESH", raising=False)
-        kw["mesh_shape"] = (2, 1)
-    else:
-        monkeypatch.setenv("SAGE_TPU_DISTRIBUTED", "1")
+    monkeypatch.delenv("SAGE_TPU_MESH", raising=False)
+    kw = {"mesh_shape": (2, 1)}
     search = build_search(cfg, output_directory=str(tmp_path / "out"), **kw)
     with pytest.raises(NotImplementedError, match=_RUNNER_REGIMES[regime]):
         Runner(search, device="cpu").run()
+
+
+@pytest.mark.parametrize("name", ["Runner", "build_search", "load_config",
+                                  "maybe_init_distributed"])
+def test_lazy_exports(name):
+    """The package's lazy exports, as sage_tpu has them: each resolves to
+    its module's object and is listed in ``__all__``."""
+    import sage_tpu_torch
+
+    where = {"Runner": "pipeline.runner", "build_search": "pipeline.input",
+             "load_config": "pipeline.input",
+             "maybe_init_distributed": "parallel.multihost"}[name]
+    mod = __import__(f"sage_tpu_torch.{where}", fromlist=[name])
+    assert getattr(sage_tpu_torch, name) is getattr(mod, name)
+    assert name in sage_tpu_torch.__all__

@@ -154,8 +154,8 @@ def main(argv=None):
                 assert torch.equal(g, w), (name, tree)
         ms = {t: [] for t in trees}
         for i in list(range(len(trees))) + list(range(len(trees)))[::-1]:
-            ms[trees[i]].append(cs.cuda_ms(lambda: run(mods[i]), args.reps))
-        lib = cs.cuda_ms(lambda: [torch.sort(x, dim=1) for x in xs],
+            ms[trees[i]].append(cs.exec_ms(lambda: run(mods[i]), args.reps))
+        lib = cs.exec_ms(lambda: [torch.sort(x, dim=1) for x in xs],
                          args.reps)
         out = {"shapes": shapes, "real_keys": real, "bound_ms": bound,
                "bound_by": by, "torch_sort_ms": lib, "ms": ms}
@@ -177,7 +177,7 @@ def main(argv=None):
                         xs[0].shape[0], F, blk)
                     for x, w in zip(xs, want):
                         assert torch.equal(mod.cluster_sort(x, blk), w)
-                    t = [cs.cuda_ms(lambda: [mod.cluster_sort(x, blk)
+                    t = [cs.exec_ms(lambda: [mod.cluster_sort(x, blk)
                                              for x in xs], args.reps)
                          for _ in range(2)]
                     out["slices"][f"{tree}:{C}"] = dict(

@@ -1,8 +1,9 @@
 """Drive the PyTorch port on one CUDA card and check it: the Runner and
 the CLI from FASTA, mzML, MGF and Bruker .d files to results.sage.tsv,
 the parquet set, lfq.tsv and the HTML report, in one process and in
-two, and the narrow, banded, chimeric and open searches through the
-fused and the two-dispatch paths.
+two, the narrow, banded, chimeric and open searches through the fused
+and the two-dispatch paths, and the multi-device grid with its shards
+laid on the one card.
 
 Usage (from the repository root, on a machine with an NVIDIA H100):
 
@@ -52,6 +53,12 @@ seconds):
     each process's logged stage-1 launches > 0. Prints the processes'
     seconds, their database builds and the gather's seconds (which
     include the wait for the slower process).
+24. The Runner on a grid (right after phase 21, on phase 11's Runner,
+    database and mzML): ``mesh_shape`` (2, 2) with the process's device
+    list replaced by cuda:0 four times, so ``_make_scorer`` builds a
+    ShardedScorer whose four shards share the card. The stage-1 counter
+    is set to 0 just before the run and must be > 0 after;
+    results.sage.tsv must be byte-equal to phase 11's.
 3. Narrow main path at full width: bench.py's workload (the same
    database, 2 batches of 8192 synthetic spectra, precursor +-20 ppm,
    fragment +-10 ppm) through
@@ -159,13 +166,32 @@ seconds):
     placeholder) and target MS1 peaks at 5% FDR; (b) the Runner on the
     card on a 6,000-protein FASTA and two files of 4,096 MS2 + 1,024 MS1
     scans: the run's, the quant's and the report's seconds.
+22. Grid narrow (after phase 14): phase 3's first 8192-spectrum batch
+    through ``ShardedScorer.score_table`` on grids of (2, 2) and (1, 4)
+    shards, all on the card (shards on one card run one after another,
+    so the rates say nothing of several cards). The windowed step must
+    run, the stage-1 counter (0 just before each grid's batch) must be
+    > 0, and every column must equal phase 3's table; the kernel must
+    equal its plain version at two of the grid's launches.
+23. Grid open: phase 6's first 2 x 512 spectra on grids of (1, 2),
+    (2, 4) and (1, 32) (GRID_OPEN_SHAPES) with SAGE_TPU_SHARD_WINDOWED=0
+    (at a model axis of 2 the open window fits one shard's peptide
+    range, where the windowed step's gate would take it): every batch
+    through the banded open step (B x F within MAX_ELEMENTS), each
+    shard's entry rows sorted once by the row-sort kernel (F <= 2^15),
+    the cluster kernel (F <= 2^17) or, past that, torch.sort, as on one
+    device; F and the sort of each batch printed; the counters set to 0
+    just before each grid's batches; every column equal to phase 6's;
+    the row-sort and cluster counters > 0 over the phase; each kernel
+    equal to its plain version on a slice of the grid's rows.
 10. The ``kernels`` JSON line, the nvidia-smi line, and the final
     ``{"ok": true, ...}`` line. ``launches`` is each kernel's count on
     its main path (phase 3, 6 or 16), ``launches_by_path`` its count on
     each path that runs it (stage-1: phases 3, 11, 20, 21 (both
-    processes summed), 13, 17 and phase 15's candidate-major run; row
-    sort: 6, 14, 15, 16; cluster sort: 16, 6, 14; phases 15 and 16 count
-    their banded runs). The cluster kernel's
+    processes summed), 13, 17, phase 15's candidate-major run, 22
+    (``sharded_narrow``) and 24 (``sharded_runner``); row sort: 6, 14,
+    15, 16, 23 (``sharded_open``); cluster sort: 16, 6, 14, 23; phases 15
+    and 16 count their banded runs). The cluster kernel's
     times are phase 16's; phase 7's lowered-limit run adds
     ``forced_launches``.
 
@@ -228,6 +254,14 @@ CHIMERA_SPECTRA = 2048
 # tolerance (phases 15 and 16 race both stage 1s at W = 4096)
 CROSSOVER_PREC = (3.0, 6.0)
 CROSSOVER_FRAG = (("ppm", -10.0, 10.0), ("da", -0.5, 0.5))
+# phase 23's grids, each on phase 6's first GRID_OPEN_BATCHES batches.
+# A model shard's entry row holds all of its fragments that meet one of
+# the spectrum's peaks (any precursor mass), so on bench.py's database F
+# is 196,608 keys at a model axis of 2 (past MAX_F: torch.sort, as on
+# one device), 114,688-131,072 at 4 (the cluster kernel) and
+# 24,576-28,672 at 32 (the row-sort kernel)
+GRID_OPEN_SHAPES = ((1, 2), (2, 4), (1, 32))
+GRID_OPEN_BATCHES = 2
 # phase 18's inputs: (proteins, MS2 scans, MS1 scans) of each of two files
 LFQ_SMALL = (300, 512, 128)
 LFQ_LARGE = (6000, 4096, 1024)
@@ -1465,6 +1499,197 @@ def cli_phase(torch, tmp, times):
     return dict(cli_s=cli_s, cpu_runner_s=cpu_s, rows=n_rows)
 
 
+def _grid(torch, sharding, db, params, shape, dev):
+    """A ShardedScorer on a ``shape`` grid whose shards all lie on ``dev``
+    (listed data x model times), and its build seconds."""
+    mesh = sharding.make_mesh(*shape, devices=[dev] * (shape[0] * shape[1]))
+    t0 = time.perf_counter()
+    sc = sharding.ShardedScorer(db, mesh, params)
+    torch.cuda.synchronize()
+    return sc, time.perf_counter() - t0
+
+
+def sharded_phases(torch, mods, db, narrow_fused, open_fused, dev, times):
+    """Phases 22-23: the grid's narrow (windowed) and banded open steps,
+    every shard on this card. Returns the record."""
+    from sage_tpu_torch.parallel import sharding
+
+    pallas_stage1, pallas_sort = mods["stage1"], mods["sort"]
+    topen = mods["open"]
+    rec = {"narrow": {}, "open": {}}
+    with Phase("22_sharded_narrow", times):
+        params, (b1, _b2), tables = narrow_fused
+        captured = []
+        real_s1 = sharding.stage1_counts
+
+        def recording(lad, peaks, ints, **kw):
+            if len(captured) < 2:
+                captured.append((lad, peaks, ints, kw))
+            return real_s1(lad, peaks, ints, **kw)
+
+        launches = 0
+        for shape in ((2, 2), (1, 4)):
+            sc, build_s = _grid(torch, sharding, db, params, shape, dev)
+            sc._host._psm_counter = int(tables[0].columns["psm_id"][0])
+            sharding.stage1_counts = recording
+            pallas_stage1.launches = 0
+            t0 = time.perf_counter()
+            try:
+                t = sc.score_table(b1)
+                torch.cuda.synchronize()
+            finally:
+                sharding.stage1_counts = real_s1
+            wall = time.perf_counter() - t0
+            n = pallas_stage1.launches
+            assert sc.last_route[0] == "win", sc.last_route
+            assert n > 0, f"grid {shape}: the stage-1 kernel did not launch"
+            assert_tables_equal(t, tables[0], f"sharded narrow {shape}")
+            launches += n
+            log(f"# sharded narrow {shape}: {len(b1)} spectra in {wall:.3f} "
+                f"s = {len(b1) / wall:.1f} spectra/s (the {shape[0] * shape[1]}"
+                f" shards share the card and run one after another), tables "
+                f"built in {build_s:.2f} s, P_local "
+                f"{sc.search.tables.P_local}, step {sc.last_route}, "
+                f"stage1_counts launches {n}, most live items a shard "
+                f"rescored {sc.search.last_live}; all {len(t.columns)} "
+                f"columns equal phase 3's")
+            rec["narrow"][f"{shape[0]}x{shape[1]}"] = dict(
+                wall_s=wall, spectra_per_s=len(b1) / wall, build_s=build_s,
+                stage1_launches=n, W=sc.last_route[1],
+                last_live=sc.search.last_live)
+        rec["stage1_launches"] = launches
+        for lad, peaks, ints, kw in captured:
+            got = pallas_stage1.stage1_counts(lad, peaks, ints, **kw)
+            want = pallas_stage1.stage1_counts_plain(lad, peaks, ints, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), kw
+        log(f"# sharded narrow: the stage-1 kernel equals its plain version "
+            f"at {len(captured)} of the grid's launches (rows "
+            f"{[c[2].shape[1] for c in captured]}, W "
+            f"{[c[3]['W'] for c in captured]})")
+
+    with Phase("23_sharded_open", times):
+        params, batches, tables = open_fused
+        batches = batches[:GRID_OPEN_BATCHES]
+        n_spec = sum(len(b) for b in batches)
+        sorts = {}
+        real_sort = topen.bitonic_sort_rows
+
+        def recording_sort(key, *a, **k):
+            kind = "row_sort" if key.shape[1] <= pallas_sort._BLOCK_MAX \
+                else "cluster_sort"
+            sorts.setdefault(kind, key[:128].clone())
+            return real_sort(key, *a, **k)
+
+        totals = {k: 0 for k in pallas_sort.launches}
+        # a -500/+100 Da window spans no more than one shard's peptide
+        # range at a model axis of 2, where the windowed step's gate would
+        # take it: the banded open step is asked for, as sage_tpu's tests
+        # ask for it
+        for shape in GRID_OPEN_SHAPES:
+            sc, build_s = _grid(torch, sharding, db, params, shape, dev)
+            n_shards = shape[0] * shape[1]
+            per_batch = []
+            for k in pallas_sort.launches:
+                pallas_sort.launches[k] = 0
+            t0 = time.perf_counter()
+            with EnvSet("SAGE_TPU_SHARD_WINDOWED", "0"):
+                topen.bitonic_sort_rows = recording_sort
+                try:
+                    for bt, tt in zip(batches, tables):
+                        n0 = dict(pallas_sort.launches)
+                        sc._host._psm_counter = int(tt.columns["psm_id"][0])
+                        t = sc.score_table(bt)
+                        kind, B, F = sc.last_route
+                        assert kind == "open", sc.last_route
+                        grew = {k: pallas_sort.launches[k] - n0[k]
+                                for k in n0}
+                        # rows past MAX_F keys take torch.sort, as on one
+                        # device
+                        want = ("row_sort" if F <= pallas_sort._BLOCK_MAX
+                                else "cluster_sort" if F <= pallas_sort.MAX_F
+                                else "torch.sort")
+                        assert grew == {k: n_shards * (k == want)
+                                        for k in grew}, (shape, F, grew)
+                        assert_tables_equal(t, tt, f"sharded open {shape}")
+                        per_batch.append((F, want))
+                    torch.cuda.synchronize()
+                finally:
+                    topen.bitonic_sort_rows = real_sort
+            wall = time.perf_counter() - t0
+            launches = dict(pallas_sort.launches)
+            for k in totals:
+                totals[k] += launches[k]
+            # the host's share: one batch's range planning over the shards
+            masses = sc._host._pad_peaks(batches[0])[0]
+            t0 = time.perf_counter()
+            sc.search.open_ranges(masses)
+            plan_s = time.perf_counter() - t0
+            log(f"# sharded open {shape}: {len(batches)} x {len(batches[0])} "
+                f"spectra in {wall:.3f} s = {n_spec / wall:.1f} spectra/s "
+                f"(shards share the card, one after another; the first "
+                f"batch builds the shards' fragment index), tables built in "
+                f"{build_s:.2f} s; B x F <= MAX_ELEMENTS, so the banded open "
+                f"step each batch; (F, sort) per batch {per_batch}; launches "
+                f"{launches}; host range planning {plan_s:.3f} s a batch; "
+                f"all columns equal phase 6's")
+            rec["open"][f"{shape[0]}x{shape[1]}"] = dict(
+                wall_s=wall, spectra_per_s=n_spec / wall, build_s=build_s,
+                F=[f for f, _k in per_batch], launches=launches,
+                plan_s=plan_s)
+        rec["sort_launches"] = totals
+        assert totals["row_sort"] > 0 and totals["cluster_sort"] > 0, totals
+        for kind, x in sorts.items():
+            got = real_sort(x)
+            torch.cuda.synchronize()
+            assert torch.equal(got.cpu(), _plain_sort(pallas_sort, x.cpu()))
+            log(f"# sharded open: {kind} equals its plain version on a "
+                f"[{x.shape[0]}, {x.shape[1]}] slice of the grid's rows")
+    return rec
+
+
+def sharded_runner_phase(torch, pallas_stage1, runner, search, tsv11, tmp,
+                         dev, times):
+    """Phase 24: phase 11's Runner and spectra on a (2, 2) grid, every
+    shard on ``dev``; results.sage.tsv byte-equal to phase 11's."""
+    from sage_tpu_torch.parallel import sharding
+
+    out_dir = os.path.join(tmp, "runner_grid")
+    with Phase("24_sharded_runner", times):
+        kinds = []
+        real_local, real_make = sharding.local_devices, runner._make_scorer
+
+        def make():
+            s = real_make()
+            kinds.append(type(s).__name__)
+            return s
+
+        sharding.local_devices = lambda device="cuda": [dev] * 4
+        runner._make_scorer = make
+        pallas_stage1.launches = 0
+        t0 = time.perf_counter()
+        try:
+            result = rerun(runner, search, out_dir, mesh_shape=(2, 2))
+            torch.cuda.synchronize()
+        finally:
+            sharding.local_devices = real_local
+            del runner._make_scorer
+        run_s = time.perf_counter() - t0
+        launches = pallas_stage1.launches
+        with open(os.path.join(out_dir, "results.sage.tsv"), "rb") as f:
+            tsv = f.read()
+        assert kinds == ["ShardedScorer"], kinds
+        assert launches > 0, "the grid Runner did not launch stage 1"
+        assert tsv == tsv11, "grid results.sage.tsv differs from phase 11's"
+        ph = result["phases"]
+        n_spec = len(result["features"])
+        log(f"# sharded Runner (2, 2) on one card: run() {run_s:.2f} s, "
+            f"search {ph['search_s']:.3f} s; stage1_counts launches "
+            f"{launches}; results.sage.tsv ({len(tsv)} bytes, {n_spec} "
+            f"PSMs) byte-equal to phase 11's")
+    return dict(run_s=run_s, phases=ph, stage1_launches=launches)
+
+
 def two_dispatch_phase(torch, tsearch, name, db, fused, kernel, counts,
                        times, open_search=False):
     """Phases 13 and 14: the batches of a fused main path, ``fused`` =
@@ -2228,10 +2453,16 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         runner_rec, runner, spectra = runner_phase(torch, pallas_stage1,
                                                    tmp, times)
+        search11 = runner.parameters
+        with open(os.path.join(search11.output_directory,
+                               "results.sage.tsv"), "rb") as f:
+            tsv11 = f.read()
         tdf_rec = tdf_phase(torch, pallas_stage1, runner, spectra, tmp,
                             host_packages["pyarrow"], times)
         mp_rec = multiprocess_phase(torch, pallas_stage1, runner, spectra,
                                     tmp, times)
+        grid_runner = sharded_runner_phase(torch, pallas_stage1, runner,
+                                           search11, tsv11, tmp, dev, times)
         db = runner.database
         del runner
         narrow, k_stage1, narrow_fused = narrow_phases(
@@ -2258,6 +2489,8 @@ def main():
 
     mods = {"search": tsearch, "banded": tbanded, "open": topen,
             "sort": pallas_sort, "stage1": pallas_stage1}
+    grid = sharded_phases(torch, mods, db, narrow_fused, open_fused, dev,
+                          times)
     banded = banded_phase(torch, mods, db, spectra, times,
                           "15_banded", [("ppm", -10.0, 10.0)],
                           cpu_spectra=64)
@@ -2279,13 +2512,16 @@ def main():
         "multiprocess": sum(mp_rec["stage1_launches"]),
         "two_dispatch_narrow": td_narrow["launches"],
         "chimera": chim["launches"],
-        "banded_reference": banded["reference_stage1_launches"]}
+        "banded_reference": banded["reference_stage1_launches"],
+        "sharded_narrow": grid["stage1_launches"],
+        "sharded_runner": grid_runner["stage1_launches"]}
     k_row = k_sort[0]
     k_row["launches_by_path"] = {
         "open_fused": k_row["launches"],
         "two_dispatch_open": td_open["launches_all"]["row_sort"],
         "banded": banded["launches"]["row_sort"],
-        "banded_lowres": lowres["launches"]["row_sort"]}
+        "banded_lowres": lowres["launches"]["row_sort"],
+        "sharded_open": grid["sort_launches"]["row_sort"]}
     k_row.update({f"banded_{k}": banded["sort"][k]
                   for k in ("ms", "plain_ms", "library_ms", "bound_ms")})
     # the cluster kernel's main path is the low-resolution banded batch
@@ -2305,7 +2541,8 @@ def main():
         "launches_by_path": {
             "banded_lowres": lowres["launches"]["cluster_sort"],
             "open_fused": k_open_cl["launches"],
-            "two_dispatch_open": td_open["launches_all"]["cluster_sort"]},
+            "two_dispatch_open": td_open["launches_all"]["cluster_sort"],
+            "sharded_open": grid["sort_launches"]["cluster_sort"]},
     }
     kernels = {"kernels": []}
     for k in (k_stage1, k_row, k_cluster):
@@ -2324,7 +2561,7 @@ def main():
         "narrow": narrow, "open": open_rec, "cli": cli_rec,
         "two_dispatch_narrow": td_narrow, "two_dispatch_open": td_open,
         "banded": banded, "banded_lowres": lowres, "crossover": crossover,
-        "chimera": chim,
+        "chimera": chim, "sharded": grid, "sharded_runner": grid_runner,
         "lfq": lfq_rec, **kernels,
     }
     record["total_s"] = time.perf_counter() - t_start

@@ -13,9 +13,9 @@ narrow, banded, chimeric and open searches (``Scorer.score_table`` /
 ``Scorer.score_stream``) through the fused and the two-dispatch paths,
 RT / mobility prediction, LDA rescoring, FDR, protein grouping, TMT and
 label-free quant, the TSV / PIN / parquet / JSON outputs and the HTML
-report, in one process or several (``maybe_init_distributed``). A mesh
-of more than one device is not ported yet and raises
-``NotImplementedError`` naming its ROADMAP item.
+report, in one process or several (``maybe_init_distributed``), on one
+device or on a ("data", "model") grid of devices (``ShardedScorer``,
+``make_mesh``).
 """
 
 __version__ = "0.1.0"
@@ -25,6 +25,8 @@ __all__ = [
     "IndexedDatabase",
     "Scorer",
     "SearchParams",
+    "ShardedScorer",
+    "make_mesh",
     "Runner",
     "maybe_init_distributed",
     "build_search",
@@ -45,6 +47,10 @@ def __getattr__(name):
         from .ops import search
 
         return getattr(search, name)
+    if name in ("ShardedScorer", "make_mesh"):
+        from .parallel import sharding
+
+        return getattr(sharding, name)
     if name == "Runner":
         from .pipeline.runner import Runner
 

@@ -49,8 +49,8 @@ def main(argv=None) -> int:
         "--mesh-shape", default=None, metavar="DATA,MODEL",
         help=(
             "Device-mesh shape for multi-device search, e.g. '4,2' = 4-way "
-            "data x 2-way index parallel; the port searches on one device "
-            "and raises for a shape of more than one"
+            "data x 2-way index parallel (default: every visible card on "
+            "the data axis; '1,1' forces one device)"
         ),
     )
     ap.add_argument("--parquet", action="store_true", help="Write parquet output")

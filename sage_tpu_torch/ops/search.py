@@ -565,7 +565,10 @@ def _to_dev(a: np.ndarray, device) -> torch.Tensor:
 
 class _DeviceTables:
     """Device-resident ladder tables, padded to a multiple of 2048 rows so
-    any precursor-window slice of width W <= P_pad stays in bounds.
+    any precursor-window slice of width W <= P_pad stays in bounds. With
+    ``rows = (base, P_pad)`` the tables hold the peptide rows
+    [base, base + P_pad) alone, padded to exactly P_pad rows: one model
+    shard's part of the table (``parallel/sharding.py``).
 
     * ``lad_index`` [P_pad, S, L] f32: ladders with the index's
       min_ion_index filter applied (database.rs:281-291); filtered and
@@ -577,23 +580,32 @@ class _DeviceTables:
 
     A candidate's [S, L] row is contiguous in both."""
 
-    def __init__(self, db: IndexedDatabase, series, min_ion_index, device):
+    def __init__(self, db: IndexedDatabase, series, min_ion_index, device,
+                 rows=None):
         t = db.table
-        P = len(t)
+        if rows is None:
+            sl = slice(0, len(t))
+            self.P_pad = max(((len(t) + 2047) // 2048) * 2048, 128)
+        else:
+            base, self.P_pad = rows
+            sl = slice(min(base, len(t)), min(base + self.P_pad, len(t)))
+        P = sl.stop - sl.start
         self.P_real = P
-        self.P_pad = max(((P + 2047) // 2048) * 2048, 128)
         L = t.max_len
         self.L = L
         pad = self.P_pad - P
         resmass = _to_dev(
-            np.pad(t.resmass, ((0, pad), (0, 0))).astype(np.float32), device
-        )
-        nterm = _to_dev(np.pad(t.nterm, (0, pad)).astype(np.float32), device)
-        mono = _to_dev(
-            np.pad(t.mono, (0, pad), constant_values=np.inf).astype(np.float32),
+            np.pad(t.resmass[sl], ((0, pad), (0, 0))).astype(np.float32),
             device,
         )
-        lens = _to_dev(np.pad(t.lens, (0, pad)).astype(np.int32), device)
+        nterm = _to_dev(np.pad(t.nterm[sl], (0, pad)).astype(np.float32),
+                        device)
+        mono = _to_dev(
+            np.pad(t.mono[sl], (0, pad),
+                   constant_values=np.inf).astype(np.float32),
+            device,
+        )
+        lens = _to_dev(np.pad(t.lens[sl], (0, pad)).astype(np.int32), device)
         neg_inf = torch.tensor(-np.inf, dtype=torch.float32, device=device)
         lad = ion_ladders(resmass, nterm, mono, series)  # [S, P_pad, L]
         idx_valid = series_valid_mask(lens, L, series, min_ion_index)
@@ -628,7 +640,12 @@ class Scorer:
 
     ``device``: where the tables live and the search runs. Defaults to
     ``"cuda"``; with no CUDA device the caller must pass ``"cpu"``
-    explicitly (the plain versions of every kernel then run)."""
+    explicitly (the plain versions of every kernel then run).
+    ``build_device_tables=False`` builds the host machinery alone (row
+    expansion, peak padding, the PreScore merge, feature assembly, the
+    chimera rounds) and no tables: the form that
+    ``parallel.sharding.ShardedScorer`` embeds, whose device work runs on
+    its mesh."""
 
     # The device's hs32 and the host's f64 hyperscore consume the SAME
     # fetched f32 (mb, my, sb, sy), so their divergence is pure rounding:
@@ -639,22 +656,23 @@ class Scorer:
     SELECT_EPS = 2e-3
 
     def __init__(self, db: IndexedDatabase, params: SearchParams,
-                 device=None):
-        if device is None:
+                 device=None, build_device_tables: bool = True):
+        if device is None and build_device_tables:
             if not torch.cuda.is_available():
                 raise RuntimeError(
                     "Scorer: no CUDA device is available; pass "
                     "device='cpu' to run the plain versions on the CPU"
                 )
             device = "cuda"
-        self.device = torch.device(device)
+        self.device = torch.device(device or "cpu")
         self.db = db
         self.params = params
         self.series = tuple(db.ion_kinds)
         self.n_series = len(self.series)
         self.min_ion_index = db.min_ion_index
-        self.tables = _DeviceTables(
-            db, self.series, self.min_ion_index, self.device
+        self.tables = (
+            _DeviceTables(db, self.series, self.min_ion_index, self.device)
+            if build_device_tables else None
         )
         # Global fragment-charge axis: 1..Zmax where Zmax is the largest
         # exclusive bound any precursor charge can produce.

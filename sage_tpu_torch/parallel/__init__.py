@@ -1,2 +1,4 @@
-"""Multi-process execution of the port (counterpart of
-``sage_tpu/parallel``; the multi-device mesh is not ported yet)."""
+"""Multi-device and multi-process execution of the port (counterpart of
+``sage_tpu/parallel``): ``sharding`` searches on a ("data", "model")
+grid of devices from one process, ``multihost`` splits a run's files
+over processes."""

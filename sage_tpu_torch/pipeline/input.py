@@ -122,8 +122,8 @@ class Search:
     score_type: str = "SageHyperScore"
     bruker_config: Optional[dict] = None
     # Extensions with no reference analog: the device-mesh shape (data,
-    # model) of a multi-device search — None = one device; the port
-    # searches on one card (ROADMAP Queue 1 item 12) — and the number of
+    # model) of a multi-device search — None = one device, or every
+    # visible card along "data" — and the number of
     # files read concurrently (main.rs:118-121's --batch-size; 0 =
     # num_cpus/2).
     mesh_shape: Optional[tuple] = None

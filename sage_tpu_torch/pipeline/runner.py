@@ -12,9 +12,9 @@ large padded batches on one CUDA device (``ops/search.py``) and PSMs
 accumulate in a columnar FeatureTable. A multi-process run
 (``parallel/multihost.py``) gives each process a shard of the files and
 a card of its own, or one it shares; the results are gathered before
-the global stages and process 0 writes the outputs. A mesh of more than
-one device is not ported yet and raises ``NotImplementedError`` naming
-its ROADMAP item.
+the global stages and process 0 writes the outputs. A mesh shape, or a
+process that sees more than one card, searches on a ("data", "model")
+grid of devices (``parallel/sharding.py``).
 """
 
 from __future__ import annotations
@@ -322,31 +322,37 @@ class Runner:
         )
         return db
 
-    def _make_scorer(self) -> Scorer:
-        """The single-device scorer. A mesh shape (the `mesh_shape:
-        [data, model]` config key, the `--mesh-shape` CLI flag or the
-        SAGE_TPU_MESH env var "data,model") that asks for more than one
-        device raises: multi-GPU search is not ported yet."""
+    def _make_scorer(self):
+        """Single-device or multi-device scorer. The grid is the search's
+        engine whenever this process sees more than one device (the
+        analog of the reference wiring its rayon pool globally,
+        main.rs:107-116): auto shape = (n_devices data, 1 model),
+        overridable via the `mesh_shape: [data, model]` config key, the
+        `--mesh-shape` CLI flag, or the SAGE_TPU_MESH env var
+        ("data,model"; "1,1" forces the single-device path). In a
+        multi-process run each process meshes its own device only; a
+        shape that needs more devices than the process has fails."""
+        from ..parallel import sharding
+
         p = self.parameters
         shape = p.mesh_shape
         env = os.environ.get("SAGE_TPU_MESH")
         if env:
             shape = tuple(int(x) for x in env.split(","))
-        if shape is not None and shape[0] * shape[1] > 1:
-            raise NotImplementedError(
-                f"mesh shape {tuple(shape)}: multi-GPU search is not ported "
-                "yet (ROADMAP Queue 1 item 12)"
-            )
-        if (
-            shape is None and self.device.type == "cuda"
-            and torch.cuda.device_count() > 1 and self.process_count == 1
-        ):
-            log.info(
-                "%d CUDA devices visible; multi-GPU search is not ported yet "
-                "(ROADMAP Queue 1 item 12), searching on %s",
-                torch.cuda.device_count(), self.device,
-            )
-        return Scorer(self.database, self.search_params(), device=self.device)
+        devices = ([self.device] if self.process_count > 1
+                   else sharding.local_devices(self.device))
+        if shape is None and len(devices) > 1:
+            shape = (len(devices), 1)
+        if shape is None or shape[0] * shape[1] <= 1:
+            return Scorer(self.database, self.search_params(),
+                          device=self.device)
+        log.info(
+            "multi-device search: mesh = (%d data, %d model) over %d "
+            "devices", shape[0], shape[1], len(devices),
+        )
+        mesh = sharding.make_mesh(shape[0], shape[1], devices=devices)
+        return sharding.ShardedScorer(self.database, mesh,
+                                      self.search_params())
 
     def _file_workers(self) -> int:
         """Number of files read/processed concurrently: the --batch-size

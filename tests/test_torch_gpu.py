@@ -1,7 +1,8 @@
 """The port on a CUDA device: the stage-1, row-sort and cluster-sort kernels
 against their plain versions on the card, and the whole narrow, banded,
-chimeric and open paths (fused and two-dispatch) and the Runner on the
-card against the CPU.
+chimeric and open paths (fused and two-dispatch), the multi-device grid
+(four shards on the one card) and the Runner on the card against the
+CPU.
 Every test here needs a card; where there is none they skip.
 
 Run on a machine with a card (the variable keeps conftest.py from
@@ -389,3 +390,82 @@ def test_runner_card_matches_cpu(cuda, tmp_path):
                      for n in ("results.sage.tsv", "results.sage.pin")]
     assert outs["cuda"] == outs["cpu"]
     assert outs["cpu"][0].count(b"\n") > 64
+
+
+# the grid's steps: (environment, the kernel counter that must grow)
+_GRID_PATHS = {
+    "windowed": ({"SAGE_TPU_SHARD_WINDOWED": "1"}, "stage1"),
+    "full": ({"SAGE_TPU_SHARD_WINDOWED": "0", "SAGE_TPU_SHARD_OPEN": "0"},
+             "stage1"),
+    "banded": ({"SAGE_TPU_SHARD_WINDOWED": "0", "SAGE_TPU_SHARD_OPEN": "1"},
+               "sort"),
+    "chimera": ({}, "stage1"),
+}
+
+
+def _launch_count(kind):
+    if kind == "stage1":
+        return pallas_stage1.launches
+    return pallas_sort.launches["row_sort"] + pallas_sort.launches[
+        "cluster_sort"]
+
+
+@pytest.mark.parametrize("path", sorted(_GRID_PATHS))
+def test_grid_card_matches_cpu(cuda, small, monkeypatch, path):
+    """A (2, 2) grid of four shards on the one card (cuda:0 four times):
+    the windowed, whole-table and banded open steps and chimeric search
+    launch their kernels on the shards, and every FeatureTable column
+    equals the single-device CPU Scorer's."""
+    from sage_tpu_torch.parallel import sharding
+
+    db, spectra = small
+    env, kind = _GRID_PATHS[path]
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    params = _params(("ppm", -10.0, 10.0))
+    if path == "chimera":
+        params = dataclasses.replace(params, chimera=True)
+    mesh = sharding.make_mesh(2, 2, devices=[cuda] * 4)
+    sc = sharding.ShardedScorer(db, mesh, params)
+    before = _launch_count(kind)
+    t_gpu = sc.score_table(spectra[:96])
+    torch.cuda.synchronize()
+    assert _launch_count(kind) > before, kind
+    if path != "chimera":
+        assert sc.last_route[0] == {"windowed": "win", "full": "full",
+                                    "banded": "open"}[path]
+    t_cpu = Scorer(db, params, device="cpu").score_table(spectra[:96])
+    _assert_same([t_gpu], [t_cpu])
+
+
+def test_runner_grid_card_matches_cpu(cuda, tmp_path, monkeypatch):
+    """The Runner on a (2, 2) grid on the one card against the CPU
+    Runner on one device: results.sage.tsv byte-equal, the stage-1 kernel
+    launched."""
+    from sage_tpu_torch.parallel import sharding
+    from sage_tpu_torch.pipeline.input import build_search
+    from sage_tpu_torch.pipeline.runner import Runner
+
+    text = synth_fasta(50)
+    (tmp_path / "db.fasta").write_text(text)
+    params = DatabaseParams()
+    db = params.build(Fasta.parse(text, params.decoy_tag, True))
+    _write_mgf(tmp_path / "run.mgf", synth_spectra(db, 128, seed=9))
+    cfg = {"database": {"fasta": str(tmp_path / "db.fasta")},
+           "precursor_tol": {"ppm": [-20, 20]},
+           "fragment_tol": {"ppm": [-10, 10]}, "deisotope": False,
+           "mzml_paths": [str(tmp_path / "run.mgf")]}
+    monkeypatch.delenv("SAGE_TPU_MESH", raising=False)
+    monkeypatch.setattr(sharding, "local_devices",
+                        lambda device="cuda": [cuda] * 4)
+    outs = {}
+    for dev, shape in (("cuda", (2, 2)), ("cpu", (1, 1))):
+        out = tmp_path / dev
+        before = pallas_stage1.launches
+        Runner(build_search(json.loads(json.dumps(cfg)),
+                            output_directory=str(out), mesh_shape=shape),
+               device=dev).run()
+        assert (pallas_stage1.launches > before) == (dev == "cuda")
+        outs[dev] = (out / "results.sage.tsv").read_bytes()
+    assert outs["cuda"] == outs["cpu"]
+    assert outs["cpu"].count(b"\n") > 64

@@ -47,10 +47,11 @@ def test_imports_with_jax_and_sage_tpu_blocked():
         "import sage_tpu_torch.pipeline.parquet_out\n"
         "import sage_tpu_torch.io.tdf\n"
         "import sage_tpu_torch.parallel.multihost\n"
+        "import sage_tpu_torch.parallel.sharding\n"
         "import sage_tpu_torch.utils.devprof\n"
         "import sage_tpu_torch.cli\n"
         "from sage_tpu_torch import (Runner, build_search, load_config,\n"
-        "    maybe_init_distributed)\n"
+        "    maybe_init_distributed, ShardedScorer, make_mesh)\n"
         "assert 'jax' not in [m.split('.')[0] for m in sys.modules"
         " if sys.modules[m] is not None]\n"
         "print('ok')\n"
@@ -91,17 +92,14 @@ def test_scorer_without_device_raises_when_cuda_absent(monkeypatch):
         Scorer(object(), params)
 
 
-# the Runner's regimes that are not ported yet, each with its ROADMAP item
-_RUNNER_REGIMES = {
-    "mesh_shape": "Queue 1 item 12",
-}
-
-
-@pytest.mark.parametrize("regime", sorted(_RUNNER_REGIMES))
-def test_out_of_slice_regimes_raise(regime, monkeypatch, tmp_path):
-    """Each regime that is not ported yet raises NotImplementedError
-    naming its ROADMAP item; none falls back: a mesh of more than one
-    device (parallel/sharding.py)."""
+def test_make_scorer_choice(monkeypatch, tmp_path):
+    """The Runner's scorer: a ShardedScorer for SAGE_TPU_MESH=2,1 (chimera
+    included) and for a config mesh_shape, a Scorer for "1,1", the
+    process's device count as the data axis when nothing is set, and a
+    shape that needs more devices than the process has fails. Tests the
+    process's devices are stood in for by the CPU four times."""
+    from sage_tpu_torch.ops.search import Scorer
+    from sage_tpu_torch.parallel import sharding
     from sage_tpu_torch.pipeline.input import build_search
     from sage_tpu_torch.pipeline.runner import Runner
 
@@ -111,15 +109,44 @@ def test_out_of_slice_regimes_raise(regime, monkeypatch, tmp_path):
            "precursor_tol": {"ppm": [-20, 20]},
            "fragment_tol": {"ppm": [-10, 10]},
            "mzml_paths": [str(tmp_path / "run.mzML")]}
+    r = Runner(build_search(cfg, output_directory=str(tmp_path / "out")),
+               device="cpu")
+    # without stand-ins the CPU Runner has one device
     monkeypatch.delenv("SAGE_TPU_MESH", raising=False)
-    kw = {"mesh_shape": (2, 1)}
-    search = build_search(cfg, output_directory=str(tmp_path / "out"), **kw)
-    with pytest.raises(NotImplementedError, match=_RUNNER_REGIMES[regime]):
-        Runner(search, device="cpu").run()
+    assert isinstance(r._make_scorer(), Scorer)
+    r.parameters.mesh_shape = (2, 1)
+    with pytest.raises(ValueError, match="need 2 devices, have 1"):
+        r._make_scorer()
+    r.parameters.mesh_shape = None
+
+    monkeypatch.setattr(sharding, "local_devices",
+                        lambda device="cuda": [torch.device("cpu")] * 4)
+    monkeypatch.setenv("SAGE_TPU_MESH", "2,1")
+    s = r._make_scorer()
+    assert isinstance(s, sharding.ShardedScorer)
+    assert s.mesh.shape == {"data": 2, "model": 1}
+    r.parameters.chimera = True
+    assert isinstance(r._make_scorer(), sharding.ShardedScorer)
+    r.parameters.chimera = False
+    monkeypatch.setenv("SAGE_TPU_MESH", "1,1")
+    assert isinstance(r._make_scorer(), Scorer)
+    monkeypatch.delenv("SAGE_TPU_MESH")
+    r.parameters.mesh_shape = (1, 1)
+    assert isinstance(r._make_scorer(), Scorer)
+    r.parameters.mesh_shape = (2, 2)
+    s = r._make_scorer()
+    assert isinstance(s, sharding.ShardedScorer)
+    assert s.mesh.shape == {"data": 2, "model": 2}
+    r.parameters.mesh_shape = None
+    assert r._make_scorer().mesh.shape == {"data": 4, "model": 1}
+    r.parameters.mesh_shape = (4, 2)
+    with pytest.raises(ValueError, match="need 8 devices, have 4"):
+        r._make_scorer()
 
 
 @pytest.mark.parametrize("name", ["Runner", "build_search", "load_config",
-                                  "maybe_init_distributed"])
+                                  "maybe_init_distributed", "ShardedScorer",
+                                  "make_mesh"])
 def test_lazy_exports(name):
     """The package's lazy exports, as sage_tpu has them: each resolves to
     its module's object and is listed in ``__all__``."""
@@ -127,7 +154,9 @@ def test_lazy_exports(name):
 
     where = {"Runner": "pipeline.runner", "build_search": "pipeline.input",
              "load_config": "pipeline.input",
-             "maybe_init_distributed": "parallel.multihost"}[name]
+             "maybe_init_distributed": "parallel.multihost",
+             "ShardedScorer": "parallel.sharding",
+             "make_mesh": "parallel.sharding"}[name]
     mod = __import__(f"sage_tpu_torch.{where}", fromlist=[name])
     assert getattr(sage_tpu_torch, name) is getattr(mod, name)
     assert name in sage_tpu_torch.__all__

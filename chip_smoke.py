@@ -17,10 +17,10 @@ seconds):
    import. Without pyarrow phase 20 writes TSV and records its parquet
    half as not run.
 1. Device: the card's name and power limit; exits non-zero without CUDA.
-2. Build: the three kernel sources (csrc/stage1_counts.cu,
-   csrc/row_sort.cu, csrc/cluster_sort.cu) with nvcc, side by side,
-   printing ptxas's registers / shared-memory / spill lines and the
-   build time.
+2. Build: the four kernel sources (csrc/stage1_counts.cu,
+   csrc/row_sort.cu, csrc/cluster_sort.cu, csrc/rescore.cu) with nvcc,
+   side by side, printing ptxas's registers / shared-memory / spill
+   lines and the build time.
 11. Runner at full size (runs right after the build: its database is the
    one every later phase searches): bench.py's database as a FASTA
    (synth_fasta(20000), C+57.0215 static and M+15.9949 variable mods,
@@ -28,7 +28,9 @@ seconds):
    the Runner's 8192-spectrum batch), written to a temporary directory;
    ``Runner(build_search(config)).run()`` in this process on the card,
    precursor +-20 ppm, fragment +-10 ppm, write_pin on. The stage-1
-   counter is set to 0 just before the run and must be > 0 after. Prints
+   and rescore counters are set to 0 just before the run and must be
+   > 0 after (as in every phase below that runs the rescore: 3, 6, 11,
+   13-17, 20, 22-24). Prints
    the Runner's phase seconds, the search and whole-run spectra/s, the
    PSMs / peptides / proteins at 1% FDR and peak device memory; checks
    results.sage.tsv's header against the OutputWriter's columns.
@@ -64,9 +66,12 @@ seconds):
    fragment +-10 ppm) through
    ``Scorer(db, params).score_stream`` on the card, after one warm-up
    batch. The stage-1 kernel's launch counter is set to 0 just before and
-   read just after; every batch must launch it. Then one batch's time is
-   broken down: host phases (synchronised) and, under torch.profiler,
-   the device's busy time and top kernels.
+   read just after; every batch must launch it. The warm-up batch's
+   rescore inputs are kept for phase 25 (outside the timed run and its
+   peak-memory window). Then one batch's time is broken down:
+   host phases (synchronised) and, under torch.profiler, the device's
+   busy time, the rescore and stage-1 kernels' device ms and top
+   kernels.
 4. Stage-1 kernel against plain: the kernel against its plain PyTorch
    version on the same CUDA tensors, at random segment shapes (among
    them shapes at the tiling's ragged edges: S * Lc off multiples of 32,
@@ -193,7 +198,25 @@ seconds):
     15, 16, 23 (``sharded_open``); cluster sort: 16, 6, 14, 23; phases 15
     and 16 count their banded runs). The cluster kernel's
     times are phase 16's; phase 7's lowered-limit run adds
-    ``forced_launches``.
+    ``forced_launches``; the rescore kernel's main path is phase 3, its
+    paths 3, 6, 11, 13-17 (15 and 16 banded), 20, 22-24, its times
+    phase 25's at phase 3's input.
+25. Rescore kernel against plain (runs after phase 17): the wrapper's
+    inputs captured, outside every timed run, at phase 3's narrow and
+    phase 6's open warm-up batch, phase 13's two-dispatch items (k = 1;
+    an untimed run of its first batch) and phase 16's +-0.5 Da warm-up
+    batch, and crafted edge shapes (equal intensities, zero
+    intensities, a zero denominator, -inf slots under ppm, rows of pads,
+    n * k == 0, several warps of items a row, a block past 48 KB of
+    shared memory): all seven outputs bit-equal to the plain version on
+    the card. At each captured input, timed with CUDA events: kernel,
+    plain version, kernel again, beside the bound (the compares and
+    bytes it counts) and the kernel's share of it, and beside the
+    real-work bound (live items x finite ladder slots x live charges x
+    live peaks, the fused programs' dead merge slots left out) and the
+    share of it; and one call's host
+    seconds without a synchronise (the plain version's launches alone)
+    beside the kernel's.
 
 A ``# record:`` line repeats the run's numbers as JSON.
 """
@@ -233,6 +256,10 @@ KERNELS = {
                  "sage_tpu/ops/pallas_sort.py:52"),
     "cluster_sort": ("sage_tpu_torch/csrc/cluster_sort.cu",
                      "sage_tpu/ops/pallas_sort.py:73"),
+    # no Pallas kernel: XLA fuses rescore_candidate into the stage-2
+    # programs
+    "rescore": ("sage_tpu_torch/csrc/rescore.cu",
+                "sage_tpu/ops/search.py:285"),
 }
 # The parent commit's whole long-row sort (its 2^15-key block sorts, the
 # flip passes in torch and the bitonic merge kernel), ms a batch,
@@ -461,6 +488,68 @@ def assert_tables_equal(a, b, what):
                                       err_msg=f"{what}: column {k}")
 
 
+def rescore_mod():
+    """The rescore kernel's module: its wrapper, plain version and
+    ``launches`` counter."""
+    from sage_tpu_torch.ops import rescore
+
+    return rescore
+
+
+def keep_first(store, key):
+    """A ``Recording`` keep function for the rescore that stores, under
+    ``key``, clones of the tensors (and the keywords) of the first call it
+    sees, as (args, keywords, None): None marks every item live."""
+    def keep(out, *a, **k):
+        if key not in store:
+            store[key] = (tuple(x.clone() if hasattr(x, "clone") else x
+                                for x in a), dict(k), None)
+    return keep
+
+
+class FusedRescoreCapture:
+    """Until the block ends, keep a fused scorer's first rescore inputs
+    under ``store[key]`` as (args, keywords, dead). The fused program
+    rescores all K0 merge slots of each spectrum row and masks out those
+    past the row's live count (``cnt_s``, the slots whose stage-1 count
+    is > 0, a prefix of the row); ``dead`` marks them, from the count
+    that the first fused batch's output carries (its stats rows, column
+    5)."""
+
+    def __init__(self, torch, tsearch, scorer, store, key):
+        self.torch, self.scorer, self.store, self.key = (torch, scorer,
+                                                          store, key)
+        self.rec = Recording(tsearch, "rescore_candidate",
+                             keep_first(store, key))
+
+    def __enter__(self):
+        self.rec.__enter__()
+        self.cnt = []
+        real = self.real = self.scorer._fused_finalize
+
+        def finalize(spectra, d, *a, **k):
+            if not self.cnt:
+                S_pad, Ksel = d["S_pad"], d["Ksel"]
+                self.cnt.append(
+                    d["fused"][S_pad * Ksel:S_pad * (Ksel + 1), 5].clone())
+            return real(spectra, d, *a, **k)
+
+        self.scorer._fused_finalize = finalize
+        return self
+
+    def __exit__(self, *exc):
+        self.rec.__exit__(*exc)
+        self.scorer._fused_finalize = self.real
+        if exc[0] is None:
+            args, kw, _ = self.store[self.key]
+            cnt = self.cnt[0].long()
+            n, k = args[0].shape[:2]
+            assert cnt.shape[0] == n, (self.key, cnt.shape, n)
+            dead = (self.torch.arange(k, device=cnt.device)[None, :]
+                    >= cnt[:, None])
+            self.store[self.key] = (args, kw, dead)
+
+
 def build_kernels(_cuda_build):
     """Build the kernel sources side by side (one nvcc each), then load
     them; the wrappers find the loaded libraries by name."""
@@ -482,9 +571,11 @@ def build_kernels(_cuda_build):
     return build_s
 
 
-def narrow_phases(torch, tsearch, pallas_stage1, db, spectra, dev, times):
+def narrow_phases(torch, tsearch, pallas_stage1, db, spectra, dev, times,
+                  rescore_in):
     """Phases 3-5 (the narrow search). Returns the record, the stage-1
-    kernel's entry and phase 3's (params, batches, tables)."""
+    kernel's entry and phase 3's (params, batches, tables); the warm-up
+    batch's rescore inputs go into ``rescore_in["narrow"]``."""
     batch = 8192
     warm, b1, b2 = (spectra[i * batch:(i + 1) * batch] for i in range(3))
     params = tsearch.SearchParams(
@@ -510,9 +601,11 @@ def narrow_phases(torch, tsearch, pallas_stage1, db, spectra, dev, times):
 
         tsearch.stage1_counts = recording
         try:
-            t0 = time.perf_counter()
-            warm_tables = list(scorer.score_stream([warm]))
-            warm_s = time.perf_counter() - t0
+            with FusedRescoreCapture(torch, tsearch, scorer, rescore_in,
+                                     "narrow"):
+                t0 = time.perf_counter()
+                warm_tables = list(scorer.score_stream([warm]))
+                warm_s = time.perf_counter() - t0
         finally:
             tsearch.stage1_counts = real_s1
         log(f"# warm-up batch: {batch} spectra in {warm_s:.2f} s, "
@@ -528,13 +621,16 @@ def narrow_phases(torch, tsearch, pallas_stage1, db, spectra, dev, times):
             return d
 
         scorer._fused_dispatch = counting_dispatch
+        trescore = rescore_mod()
         torch.cuda.reset_peak_memory_stats()
         pallas_stage1.launches = 0
+        trescore.launches = 0
         t0 = time.perf_counter()
         tables = list(scorer.score_stream([b1, b2]))
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         launches = pallas_stage1.launches
+        r_launches = trescore.launches
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         scorer._fused_dispatch = real_dispatch
         lp = scorer.last_plan
@@ -543,11 +639,12 @@ def narrow_phases(torch, tsearch, pallas_stage1, db, spectra, dev, times):
             f"{lp['G_eff']}, W {lp['W']}, Ksel {lp['Ksel']}")
         log(f"# main path: 2 x {batch} spectra in {wall_s:.3f} s wall = "
             f"{2 * batch / wall_s:.1f} spectra/s; stage1_counts launches "
-            f"{launches} (per batch {per_batch}); peak device memory "
-            f"{peak_gib:.2f} GiB")
+            f"{launches} (per batch {per_batch}), rescore {r_launches}; "
+            f"peak device memory {peak_gib:.2f} GiB")
         assert len(per_batch) == 2 and all(n > 0 for n in per_batch), \
             per_batch
         assert launches == sum(per_batch) > 0
+        assert r_launches > 0, "narrow: the rescore kernel did not launch"
         n_psm = 0
         for t, bt in zip(tables, (b1, b2)):
             assert len(t) > 0.9 * len(bt), (len(t), len(bt))
@@ -561,11 +658,12 @@ def narrow_phases(torch, tsearch, pallas_stage1, db, spectra, dev, times):
         breakdown = profile_batch(
             torch, scorer, b1,
             [(tsearch, "rescore_candidate"), (tsearch, "_topk_layout")],
-            {"stage1": "stage1_counts"},
+            {"stage1": "stage1_counts", "rescore": "rescore_kernel"},
         )
     out.update(batch=batch, wall_s_2_batches=wall_s,
                spectra_per_s=2 * batch / wall_s,
-               launches_per_batch=per_batch, peak_device_gib=peak_gib,
+               launches_per_batch=per_batch, rescore_launches=r_launches,
+               peak_device_gib=peak_gib,
                plan=[list(e) for e in lp["plan"]], seg_rows=lp["seg_rows"],
                batch_breakdown=breakdown)
 
@@ -696,9 +794,11 @@ def narrow_phases(torch, tsearch, pallas_stage1, db, spectra, dev, times):
     return out, kernel, (params, [b1, b2], tables)
 
 
-def open_phases(torch, tsearch, topen, pallas_sort, db, spectra, dev, times):
+def open_phases(torch, tsearch, topen, pallas_sort, db, spectra, dev, times,
+                rescore_in):
     """Phases 6-9 (the open search). Returns the record, the sort
-    kernels' entries and phase 6's (params, batches, tables)."""
+    kernels' entries and phase 6's (params, batches, tables); the warm-up
+    batch's rescore inputs go into ``rescore_in["open"]``."""
     params = tsearch.SearchParams(
         precursor_tol=tsearch.Tolerance("da", -500.0, 100.0),
         fragment_tol=tsearch.Tolerance("ppm", -10.0, 10.0),
@@ -727,9 +827,11 @@ def open_phases(torch, tsearch, topen, pallas_sort, db, spectra, dev, times):
 
         topen.bitonic_sort_rows = recording
         try:
-            t0 = time.perf_counter()
-            warm_t = list(scorer.score_stream([warm]))
-            warm_s = time.perf_counter() - t0
+            with FusedRescoreCapture(torch, tsearch, scorer, rescore_in,
+                                     "open"):
+                t0 = time.perf_counter()
+                warm_t = list(scorer.score_stream([warm]))
+                warm_s = time.perf_counter() - t0
         finally:
             topen.bitonic_sort_rows = real_sort
         wp = scorer.last_plan
@@ -749,14 +851,17 @@ def open_phases(torch, tsearch, topen, pallas_sort, db, spectra, dev, times):
 
         scorer._fused_dispatch = counting_dispatch
         reruns0 = scorer.fused_reruns
+        trescore = rescore_mod()
         torch.cuda.reset_peak_memory_stats()
         for k in pallas_sort.launches:
             pallas_sort.launches[k] = 0
+        trescore.launches = 0
         t0 = time.perf_counter()
         tables = list(scorer.score_stream(batches))
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         launches = dict(pallas_sort.launches)
+        r_launches = trescore.launches
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         scorer._fused_dispatch = real_dispatch
         reruns = scorer.fused_reruns - reruns0
@@ -770,13 +875,15 @@ def open_phases(torch, tsearch, topen, pallas_sort, db, spectra, dev, times):
         log(f"# open main path: {OPEN_BATCHES} x {B} spectra in "
             f"{wall_s:.3f} s wall = {OPEN_BATCHES * B / wall_s:.1f} "
             f"spectra/s; sort launches {launches['row_sort']}, cluster "
-            f"launches {launches['cluster_sort']}; {n_dev} of "
+            f"launches {launches['cluster_sort']}, rescore {r_launches}; "
+            f"{n_dev} of "
             f"{len(per_batch)} dispatches device-planned; fused_reruns "
             f"{reruns} (overflowed batches scored again through the "
             f"two-dispatch path); peak device memory {peak_gib:.2f} GiB")
         assert len(per_batch) == OPEN_BATCHES
         assert all(n > 0 for n, _p in per_batch), per_batch
         assert launches["row_sort"] == sum(n for n, _p in per_batch)
+        assert r_launches > 0, "open: the rescore kernel did not launch"
         for t, bt in zip(tables, batches):
             assert len(t) > 0.9 * len(bt), (len(t), len(bt))
             assert np.isfinite(t.columns["hyperscore"]).all()
@@ -790,10 +897,12 @@ def open_phases(torch, tsearch, topen, pallas_sort, db, spectra, dev, times):
             [(topen, "_probe"), (tsearch, "_device_open_count"),
              (topen, "bitonic_sort_rows"), (tsearch, "rescore_candidate")],
             {"row_sort": "row_sort_kernel",
-             "cluster_sort": "cluster_sort_kernel"},
+             "cluster_sort": "cluster_sort_kernel",
+             "rescore": "rescore_kernel"},
         )
     out.update(batch=B, batches=OPEN_BATCHES, wall_s=wall_s,
                spectra_per_s=OPEN_BATCHES * B / wall_s,
+               rescore_launches=r_launches,
                sort_launches_per_dispatch=[n for n, _p in per_batch],
                device_planned=n_dev, reruns=reruns, peak_device_gib=peak_gib,
                plans=[p for _n, p in per_batch],
@@ -1141,26 +1250,30 @@ def runner_phase(torch, pallas_stage1, tmp, times):
         log(f"# mzML: {n_spec} spectra, {os.path.getsize(mzml) / 2**20:.1f} "
             f"MiB, written in {time.perf_counter() - t0:.2f} s")
 
+        trescore = rescore_mod()
         torch.cuda.reset_peak_memory_stats()
         pallas_stage1.launches = 0
+        trescore.launches = 0
         t0 = time.perf_counter()
         result = runner.run()
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
         launches = pallas_stage1.launches
+        r_launches = trescore.launches
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         ph = result["phases"]
         log(f"# Runner phases (s): {ph}")
         log(f"# Runner: {n_spec} spectra, run() {run_s:.2f} s = "
             f"{n_spec / run_s:.1f} spectra/s whole run; search "
             f"{ph['search_s']:.3f} s = {n_spec / ph['search_s']:.1f} "
-            f"spectra/s; stage1_counts launches {launches}; peak device "
-            f"memory {peak_gib:.2f} GiB")
+            f"spectra/s; stage1_counts launches {launches}, rescore "
+            f"{r_launches}; peak device memory {peak_gib:.2f} GiB")
         log(f"# Runner at 1% FDR: {result['q_spectrum']} PSMs, "
             f"{result['q_peptide']} peptides, {result['q_protein']} "
             f"proteins, {result['q_protein_group']} protein groups; "
             f"{len(result['features'])} PSMs reported")
         assert launches > 0, "the Runner did not launch the stage-1 kernel"
+        assert r_launches > 0, "the Runner did not launch the rescore kernel"
         with open(os.path.join(out_dir, "results.sage.tsv")) as f:
             header = f.readline().rstrip("\n").split("\t")
             n_rows = sum(1 for _ in f)
@@ -1179,7 +1292,8 @@ def runner_phase(torch, pallas_stage1, tmp, times):
     rec = dict(spectra=n_spec, run_s=run_s, phases=ph,
                whole_run_spectra_per_s=n_spec / run_s,
                search_spectra_per_s=n_spec / ph["search_s"],
-               stage1_launches=launches, peak_device_gib=peak_gib,
+               stage1_launches=launches, rescore_launches=r_launches,
+               peak_device_gib=peak_gib,
                q_spectrum=result["q_spectrum"], q_peptide=result["q_peptide"],
                q_protein=result["q_protein"],
                q_protein_group=result["q_protein_group"],
@@ -1244,13 +1358,16 @@ def tdf_phase(torch, pallas_stage1, runner, spectra, tmp, pyarrow, times):
             f"MS1 frames between; {os.path.getsize(d + '/analysis.tdf_bin') / 2**20:.1f} "
             f"MiB of frames written in {time.perf_counter() - t0:.2f} s")
         out_dir = os.path.join(tmp, "tdf_out")
+        trescore = rescore_mod()
         pallas_stage1.launches = 0
+        trescore.launches = 0
         t0 = time.perf_counter()
         result = rerun(runner, search, out_dir, mzml_paths=[d],
                        parquet=bool(pyarrow))
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
         launches = pallas_stage1.launches
+        r_launches = trescore.launches
         ph = result["phases"]
         c = result["features"].columns
         near = float((np.abs(c["delta_mass"]) <= 20.5).mean())
@@ -1258,11 +1375,13 @@ def tdf_phase(torch, pallas_stage1, runner, spectra, tmp, pyarrow, times):
             f"{n_spec / run_s:.1f} spectra/s whole run; read (TDF reader) "
             f"{ph['read_s']:.3f} s; search {ph['search_s']:.3f} s = "
             f"{n_spec / ph['search_s']:.1f} spectra/s; write {ph['write_s']:.3f}"
-            f" s ({out_name}); stage1_counts launches {launches}; "
-            f"{result['q_spectrum']} PSMs at 1% FDR; {near:.3f} of the PSMs "
+            f" s ({out_name}); stage1_counts launches {launches}, rescore "
+            f"{r_launches}; {result['q_spectrum']} PSMs at 1% FDR; "
+            f"{near:.3f} of the PSMs "
             f"within 20 ppm; ion mobility {float(c['ims'].min()):.3f}-"
             f"{float(c['ims'].max()):.3f}; phases {ph}")
         assert launches > 0, "the .d run did not launch the stage-1 kernel"
+        assert r_launches > 0, "the .d run did not launch the rescore kernel"
         assert near > 0.9, near
         assert os.path.exists(os.path.join(out_dir, out_name))
         if pyarrow:
@@ -1272,8 +1391,9 @@ def tdf_phase(torch, pallas_stage1, runner, spectra, tmp, pyarrow, times):
                    whole_run_spectra_per_s=n_spec / run_s,
                    search_spectra_per_s=n_spec / ph["search_s"],
                    read_s=ph["read_s"], write_s=ph["write_s"],
-                   stage1_launches=launches, q_spectrum=result["q_spectrum"],
-                   psms=len(c["ims"]), psms_within_20ppm=near)
+                   stage1_launches=launches, rescore_launches=r_launches,
+                   q_spectrum=result["q_spectrum"], psms=len(c["ims"]),
+                   psms_within_20ppm=near)
         rec.update(ms1_read(d))
 
         # the first 512 precursors: card against CPU, the same database
@@ -1516,7 +1636,8 @@ def sharded_phases(torch, mods, db, narrow_fused, open_fused, dev, times):
 
     pallas_stage1, pallas_sort = mods["stage1"], mods["sort"]
     topen = mods["open"]
-    rec = {"narrow": {}, "open": {}}
+    trescore = rescore_mod()
+    rec = {"narrow": {}, "open": {}, "rescore_launches": 0}
     with Phase("22_sharded_narrow", times):
         params, (b1, _b2), tables = narrow_fused
         captured = []
@@ -1533,6 +1654,7 @@ def sharded_phases(torch, mods, db, narrow_fused, open_fused, dev, times):
             sc._host._psm_counter = int(tables[0].columns["psm_id"][0])
             sharding.stage1_counts = recording
             pallas_stage1.launches = 0
+            trescore.launches = 0
             t0 = time.perf_counter()
             try:
                 t = sc.score_table(b1)
@@ -1541,8 +1663,11 @@ def sharded_phases(torch, mods, db, narrow_fused, open_fused, dev, times):
                 sharding.stage1_counts = real_s1
             wall = time.perf_counter() - t0
             n = pallas_stage1.launches
+            n_r = trescore.launches
+            rec["rescore_launches"] += n_r
             assert sc.last_route[0] == "win", sc.last_route
             assert n > 0, f"grid {shape}: the stage-1 kernel did not launch"
+            assert n_r > 0, f"grid {shape}: the rescore kernel did not launch"
             assert_tables_equal(t, tables[0], f"sharded narrow {shape}")
             launches += n
             log(f"# sharded narrow {shape}: {len(b1)} spectra in {wall:.3f} "
@@ -1550,12 +1675,12 @@ def sharded_phases(torch, mods, db, narrow_fused, open_fused, dev, times):
                 f" shards share the card and run one after another), tables "
                 f"built in {build_s:.2f} s, P_local "
                 f"{sc.search.tables.P_local}, step {sc.last_route}, "
-                f"stage1_counts launches {n}, most live items a shard "
-                f"rescored {sc.search.last_live}; all {len(t.columns)} "
-                f"columns equal phase 3's")
+                f"stage1_counts launches {n}, rescore {n_r}, most live "
+                f"items a shard rescored {sc.search.last_live}; all "
+                f"{len(t.columns)} columns equal phase 3's")
             rec["narrow"][f"{shape[0]}x{shape[1]}"] = dict(
                 wall_s=wall, spectra_per_s=len(b1) / wall, build_s=build_s,
-                stage1_launches=n, W=sc.last_route[1],
+                stage1_launches=n, rescore_launches=n_r, W=sc.last_route[1],
                 last_live=sc.search.last_live)
         rec["stage1_launches"] = launches
         for lad, peaks, ints, kw in captured:
@@ -1592,6 +1717,7 @@ def sharded_phases(torch, mods, db, narrow_fused, open_fused, dev, times):
             per_batch = []
             for k in pallas_sort.launches:
                 pallas_sort.launches[k] = 0
+            trescore.launches = 0
             t0 = time.perf_counter()
             with EnvSet("SAGE_TPU_SHARD_WINDOWED", "0"):
                 topen.bitonic_sort_rows = recording_sort
@@ -1618,6 +1744,9 @@ def sharded_phases(torch, mods, db, narrow_fused, open_fused, dev, times):
                     topen.bitonic_sort_rows = real_sort
             wall = time.perf_counter() - t0
             launches = dict(pallas_sort.launches)
+            n_r = trescore.launches
+            rec["rescore_launches"] += n_r
+            assert n_r > 0, f"grid {shape}: the rescore kernel did not launch"
             for k in totals:
                 totals[k] += launches[k]
             # the host's share: one batch's range planning over the shards
@@ -1631,11 +1760,12 @@ def sharded_phases(torch, mods, db, narrow_fused, open_fused, dev, times):
                 f"batch builds the shards' fragment index), tables built in "
                 f"{build_s:.2f} s; B x F <= MAX_ELEMENTS, so the banded open "
                 f"step each batch; (F, sort) per batch {per_batch}; launches "
-                f"{launches}; host range planning {plan_s:.3f} s a batch; "
-                f"all columns equal phase 6's")
+                f"{launches}, rescore {n_r}; host range planning "
+                f"{plan_s:.3f} s a batch; all columns equal phase 6's")
             rec["open"][f"{shape[0]}x{shape[1]}"] = dict(
                 wall_s=wall, spectra_per_s=n_spec / wall, build_s=build_s,
                 F=[f for f, _k in per_batch], launches=launches,
+                rescore_launches=n_r,
                 plan_s=plan_s)
         rec["sort_launches"] = totals
         assert totals["row_sort"] > 0 and totals["cluster_sort"] > 0, totals
@@ -1666,7 +1796,9 @@ def sharded_runner_phase(torch, pallas_stage1, runner, search, tsv11, tmp,
 
         sharding.local_devices = lambda device="cuda": [dev] * 4
         runner._make_scorer = make
+        trescore = rescore_mod()
         pallas_stage1.launches = 0
+        trescore.launches = 0
         t0 = time.perf_counter()
         try:
             result = rerun(runner, search, out_dir, mesh_shape=(2, 2))
@@ -1676,30 +1808,35 @@ def sharded_runner_phase(torch, pallas_stage1, runner, search, tsv11, tmp,
             del runner._make_scorer
         run_s = time.perf_counter() - t0
         launches = pallas_stage1.launches
+        r_launches = trescore.launches
         with open(os.path.join(out_dir, "results.sage.tsv"), "rb") as f:
             tsv = f.read()
         assert kinds == ["ShardedScorer"], kinds
         assert launches > 0, "the grid Runner did not launch stage 1"
+        assert r_launches > 0, "the grid Runner did not launch the rescore"
         assert tsv == tsv11, "grid results.sage.tsv differs from phase 11's"
         ph = result["phases"]
         n_spec = len(result["features"])
         log(f"# sharded Runner (2, 2) on one card: run() {run_s:.2f} s, "
             f"search {ph['search_s']:.3f} s; stage1_counts launches "
-            f"{launches}; results.sage.tsv ({len(tsv)} bytes, {n_spec} "
-            f"PSMs) byte-equal to phase 11's")
-    return dict(run_s=run_s, phases=ph, stage1_launches=launches)
+            f"{launches}, rescore {r_launches}; results.sage.tsv "
+            f"({len(tsv)} bytes, {n_spec} PSMs) byte-equal to phase 11's")
+    return dict(run_s=run_s, phases=ph, stage1_launches=launches,
+                rescore_launches=r_launches)
 
 
 def two_dispatch_phase(torch, tsearch, name, db, fused, kernel, counts,
-                       times, open_search=False):
+                       times, open_search=False, capture=None):
     """Phases 13 and 14: the batches of a fused main path, ``fused`` =
     (params, batches, tables), again with SAGE_TPU_FUSED=0; ``counts`` =
     (reset, read): ``read`` returns every launch counter the kernels line
-    reports, as a dict, and ``kernel``'s must read > 0. All counters are
-    read once, right after the stream and before the timed single batch.
-    Every column must equal the fused tables; prints the wall rate and
-    one batch's host phases. The open searcher's tables are built before
-    the timed run, as phase 6 builds them."""
+    reports, as a dict, and ``kernel``'s and the rescore's must read > 0.
+    All counters are read once, right after the stream and before the
+    timed single batch. Every column must equal the fused tables; prints
+    the wall rate and one batch's host phases. The open searcher's tables
+    are built before the timed run, as phase 6 builds them. ``capture``:
+    (dict, key) that takes the first batch's first rescore inputs, from
+    one more untimed run of that batch."""
     params, batches, fused_tables = fused
     reset, read = counts
     sync = torch.cuda.synchronize
@@ -1723,6 +1860,7 @@ def two_dispatch_phase(torch, tsearch, name, db, fused, kernel, counts,
             launches = launches_all[kernel]
             peak_gib = torch.cuda.max_memory_allocated() / 2**30
             assert launches > 0, f"{name}: {kernel} not launched"
+            assert launches_all["rescore"] > 0, f"{name}: rescore not launched"
             for i, (a, b) in enumerate(zip(tables, fused_tables)):
                 assert_tables_equal(a, b, f"{name} batch {i} vs fused")
             # one batch's host phases, each synchronised
@@ -1745,6 +1883,12 @@ def two_dispatch_phase(torch, tsearch, name, db, fused, kernel, counts,
             scorer.score_table(batches[0])
             sync()
             ph["score_table_ms"] = (time.perf_counter() - t0) * 1e3
+            if capture:
+                # the first batch once more, untimed, for its rescore inputs
+                with Recording(tsearch, "rescore_candidate",
+                               keep_first(*capture)):
+                    scorer.score_table(batches[0])
+                sync()
         finally:
             del os.environ["SAGE_TPU_FUSED"]
         log(f"# {name}: {len(batches)} x {len(batches[0])} spectra in "
@@ -1805,7 +1949,7 @@ class EnvSet:
 
 
 def banded_phase(torch, mods, db, spectra, times, name, frags,
-                 cpu_spectra=0, lowres=False):
+                 cpu_spectra=0, lowres=False, capture=None):
     """Phases 15 and 16: bench.py's spectra with a +-1.5 Da precursor
     window, which puts the batch's widest window at W = 4096, through the
     banded stage 1 (SAGE_TPU_NARROW_BANDED=1). A warm-up batch (phase
@@ -1822,7 +1966,10 @@ def banded_phase(torch, mods, db, spectra, times, name, frags,
     rows past the one-pass limit is kept. ``cpu_spectra``: that many
     spectra on the card and on the CPU, every column equal. The sort
     kernels are then checked against their plain versions and torch.sort
-    and timed at the inputs the batch gave them."""
+    and timed at the inputs the batch gave them. The rescore counter is
+    set to 0 with the others and must be > 0 after; ``capture``: (dict,
+    key) that takes the last tolerance's warm-up batch's first rescore
+    inputs."""
     tsearch, tbanded, topen, pallas_sort, pallas_stage1 = (
         mods["search"], mods["banded"], mods["open"], mods["sort"],
         mods["stage1"])
@@ -1838,7 +1985,13 @@ def banded_phase(torch, mods, db, spectra, times, name, frags,
             t0 = time.perf_counter()
             scorer = tsearch.Scorer(db, params)
             reruns0 = scorer.fused_reruns
-            list(scorer.score_stream([warm]))
+            if capture:
+                capture[0].pop(capture[1], None)
+                with FusedRescoreCapture(torch, tsearch, scorer,
+                                         *capture):
+                    list(scorer.score_stream([warm]))
+            else:
+                list(scorer.score_stream([warm]))
             sync()
             warm_s = time.perf_counter() - t0
             nb = scorer._nb
@@ -1858,9 +2011,11 @@ def banded_phase(torch, mods, db, spectra, times, name, frags,
         scorer._psm_counter = 1
         calls = []
         measured0 = scorer.fused_reruns
+        trescore = rescore_mod()
         pallas_stage1.launches = 0
         for k in pallas_sort.launches:
             pallas_sort.launches[k] = 0
+        trescore.launches = 0
         torch.cuda.reset_peak_memory_stats()
         with Recording(tbanded.NarrowBanded, "dispatch",
                        lambda out, *a, **k: calls.append(out)):
@@ -1869,6 +2024,7 @@ def banded_phase(torch, mods, db, spectra, times, name, frags,
             sync()
             wall_s = time.perf_counter() - t0
         launches = dict(pallas_sort.launches)
+        r_launches = trescore.launches
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         lp = dict(scorer.last_plan)
         totmax = [int(c[1].item()) for c in calls]
@@ -1879,9 +2035,10 @@ def banded_phase(torch, mods, db, spectra, times, name, frags,
             f"nbcov {[c[3] for c in calls]}, F {[c[2] for c in calls]}, "
             f"totmax {totmax}, overflow reruns in the phase {reruns} (in "
             f"the measured batch {measured_reruns}); "
-            f"launches {launches}, stage1_counts {pallas_stage1.launches}; "
-            f"peak device memory {peak_gib:.2f} GiB")
+            f"launches {launches}, stage1_counts {pallas_stage1.launches}, "
+            f"rescore {r_launches}; peak device memory {peak_gib:.2f} GiB")
         assert calls and lp.get("banded"), f"{name}: no banded dispatch"
+        assert r_launches > 0, f"{name}: the rescore kernel did not launch"
         assert launches["row_sort" if not lowres else "cluster_sort"] > 0, (
             launches)
         t = tables[0]
@@ -1892,7 +2049,8 @@ def banded_phase(torch, mods, db, spectra, times, name, frags,
                    banded_dispatches=len(calls), W=lp.get("W"),
                    nbcov=[c[3] for c in calls], F=[c[2] for c in calls],
                    totmax=totmax, overflow_reruns=reruns,
-                   launches=launches, peak_device_gib=peak_gib)
+                   launches=launches, rescore_launches=r_launches,
+                   peak_device_gib=peak_gib)
 
         # the candidate-major stage 1 on the same batch
         with EnvSet("SAGE_TPU_NARROW_BANDED", "0"):
@@ -1965,7 +2123,8 @@ def banded_phase(torch, mods, db, spectra, times, name, frags,
             [(tbanded, "_bounded_search"), (tbanded, "_open_count_core"),
              (topen, "bitonic_sort_rows"), (tsearch, "rescore_candidate")],
             {"row_sort": "row_sort_kernel",
-             "cluster_sort": "cluster_sort_kernel"},
+             "cluster_sort": "cluster_sort_kernel",
+             "rescore": "rescore_kernel"},
         )
         rec["batch_breakdown"] = breakdown
         rec["sort_rows"] = [list(x.shape) for x in sorts]
@@ -2016,7 +2175,8 @@ def crossover_phase(torch, mods, db, spectra, times):
               (tsearch, "_topk_layout"), (tsearch, "rescore_candidate")]
     kernel_keys = {"stage1_counts": "stage1_counts",
                    "row_sort": "row_sort_kernel",
-                   "cluster_sort": "cluster_sort_kernel"}
+                   "cluster_sort": "cluster_sort_kernel",
+                   "rescore": "rescore_kernel"}
     cells = []
     with Phase("19_banded_crossover", times), \
             EnvSet("SAGE_TPU_OPEN_THRESHOLD", str(1 << 20)):
@@ -2097,6 +2257,122 @@ def crossover_phase(torch, mods, db, spectra, times):
     return {"cells": cells}
 
 
+RESCORE_OUTS = ("mb", "my", "summed_b", "summed_y", "ppm_sum", "longest_b",
+                "longest_y")
+
+
+def rescore_edge_inputs():
+    """Phase 25's crafted inputs, by name: the edge cases and the card's
+    random shapes (one item a row, more items a row than a block has
+    warps, a block past 48 KB of shared memory) of
+    tests/_rescore_cases.py, loaded by path, as the card's tests make
+    them."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "_rescore_cases.py")
+    spec = importlib.util.spec_from_file_location("_rescore_cases", path)
+    cases = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cases)
+    out = cases.crafted_cases()
+    for name, shape in cases.CARD_SHAPES.items():
+        out[name] = cases.shape_case(shape, seed_extra=shape[-1])
+    return out
+
+
+def rescore_phase(torch, trescore, captured, dev, times):
+    """Phase 25: the rescore kernel against its plain version on the card
+    at the crafted inputs and at the inputs ``captured`` on the main paths
+    (path -> (args, keywords, dead items or None)), all seven outputs
+    bit-equal; at each captured input the kernel, the plain version and
+    the kernel again, timed with CUDA events beside the bound and the
+    real-work bound, and one call of each timed on the host's clock
+    without a synchronise. Returns the rows by path."""
+    sync = torch.cuda.synchronize
+
+    def check(args, kw, what):
+        got = trescore.rescore_candidate(*args, **kw)
+        want = trescore.rescore_candidate_plain(*args, **kw)
+        sync()
+        for name, g, w in zip(RESCORE_OUTS, got, want):
+            assert g.dtype == w.dtype and g.shape == w.shape, (what, name)
+            if g.dtype == torch.float32:
+                g, w = g.view(torch.int32), w.view(torch.int32)
+            assert torch.equal(g, w), (what, name)
+
+    rows = {}
+    with Phase("25_rescore_kernel_vs_plain", times):
+        edge = rescore_edge_inputs()
+        for name, c in edge.items():
+            args = [torch.from_numpy(c[k]).to(dev)
+                    for k in ("f", "pkm", "pki", "maxz")]
+            n0 = trescore.launches
+            check(args, dict(series=c["series"], frag_tol=c["frag_tol"],
+                             Z=c["Z"]), name)
+            assert trescore.launches - n0 == (c["maxz"].size > 0), name
+        log(f"# rescore kernel vs plain: {len(edge)} crafted inputs "
+            f"{sorted(edge)} bit-equal (all seven outputs)")
+        for path, (args, kw, dead) in captured.items():
+            check(args, kw, path)
+            f, pkm, pki, maxz = args
+            n, k, S, L = f.shape
+            Pk, Z = pkm.shape[1], kw["Z"]
+            zlive = (maxz.long() - 1).clamp(0, Z)
+            ops = float(zlive.sum()) * S * L * Pk * 2
+            # the real work: live items x finite ladder slots x live
+            # charges x live peaks (pki >= 0) of the row
+            work = (torch.isfinite(f).sum((2, 3), dtype=torch.int64) * zlive
+                    * (pki >= 0).sum(1, dtype=torch.int64)[:, None])
+            n_dead = 0
+            if dead is not None:
+                work = work.masked_fill(dead, 0)
+                n_dead = int(dead.sum())
+            real = float(work.sum()) * 2
+            nbytes = float(f.numel() * 4 + 2 * pkm.numel() * 4
+                           + maxz.numel() * 4 + 7 * n * k * 4)
+            b_ms, b_by = bound_ms(nbytes, ops, F32_COMPARES_PER_S)
+            r_ms, r_by = bound_ms(nbytes, real, F32_COMPARES_PER_S)
+
+            def kern():
+                return trescore.rescore_candidate(*args, **kw)
+
+            def plain():
+                return trescore.rescore_candidate_plain(*args, **kw)
+
+            km1 = exec_ms(kern, 10)
+            p_ms = exec_ms(plain, 2)
+            km2 = exec_ms(kern, 10)
+            host = {}
+            for what, fn in (("plain", plain), ("kernel", kern)):
+                sync()
+                t0 = time.perf_counter()
+                fn()
+                host[what] = (time.perf_counter() - t0) * 1e3
+                sync()
+            k_ms = (km1 + km2) / 2
+            rows[path] = dict(
+                shape=[n, k, S, L], Pk=Pk, Z=Z, ms=k_ms, ms_runs=[km1, km2],
+                plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                bound_share=b_ms / k_ms, compares=ops, bytes=nbytes,
+                real_compares=real, real_bound_ms=r_ms, real_bound_by=r_by,
+                real_bound_share=r_ms / k_ms, dead_items=n_dead,
+                plain_host_ms=host["plain"], kernel_host_ms=host["kernel"])
+            log(f"# rescore {path} [n {n}, k {k}, S {S}, L {L}] Pk {Pk} Z {Z}"
+                f": bit-equal; kernel {km1:.3f} / {km2:.3f} ms, plain "
+                f"{p_ms:.2f} ms, bound {b_ms:.4f} ms ({b_by}; "
+                f"{ops / 1e9:.3f} G f32 compares at "
+                f"{F32_COMPARES_PER_S / 1e12:.1f} T/s, {nbytes / 1e6:.1f} MB "
+                f"at {HBM_BYTES_PER_S / 1e12:.2f} TB/s), share of bound "
+                f"{b_ms / k_ms:.3f}; real-work bound {r_ms:.4f} ms ({r_by}; "
+                f"{real / 1e9:.3f} G compares: {n_dead} of {n * k} items "
+                f"dead, pad peaks, -inf slots and dead items "
+                f"{1 - real / ops:.3f} of the compares), share "
+                f"{r_ms / k_ms:.3f}; one call's host ms without a "
+                f"synchronise: plain {host['plain']:.2f}, kernel "
+                f"{host['kernel']:.3f}")
+    return rows
+
+
 def chimeric_spectra(db, n, seed=17):
     """``n`` spectra of two peptides whose masses lie within 1.5 Da: 70%
     of each one's b/y ions, the first's at 1e5-1e6 and the second's at
@@ -2167,15 +2443,19 @@ def chimera_phase(torch, tsearch, pallas_stage1, db, times):
             removal.append(time.perf_counter() - t)
 
         scorer._remove_matched = timed_rm
+        trescore = rescore_mod()
         pallas_stage1.launches = 0
+        trescore.launches = 0
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         t = list(scorer.score_stream([spectra]))[0]
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         launches = pallas_stage1.launches
+        r_launches = trescore.launches
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         assert launches > 0, "chimera: stage1_counts not launched"
+        assert r_launches > 0, "chimera: the rescore kernel not launched"
         c = t.columns
         si, rank, pep = c["spec_idx"], c["rank"], c["peptide_idx"]
         assert set(np.unique(rank)) <= {1, 2} and (rank == 2).any()
@@ -2196,8 +2476,8 @@ def chimera_phase(torch, tsearch, pallas_stage1, db, times):
             f"{first:.3f}, the second peptide at rank 2 in {second:.3f}, "
             f"both peptides found in {both:.3f} of the spectra; host "
             f"_remove_matched {sum(removal):.2f} s over {len(removal)} PSMs; "
-            f"stage1_counts launches {launches}; peak device memory "
-            f"{peak_gib:.2f} GiB")
+            f"stage1_counts launches {launches}, rescore {r_launches}; peak "
+            f"device memory {peak_gib:.2f} GiB")
         assert both > 0.5, (first, second, both)
         sub = spectra[:32]
         t_gpu = tsearch.Scorer(db, params).score_table(sub)
@@ -2209,7 +2489,7 @@ def chimera_phase(torch, tsearch, pallas_stage1, db, times):
                 spectra_per_s=len(spectra) / wall_s, psms=len(t),
                 first_share=first, second_share=second, both_share=both,
                 remove_matched_s=sum(removal), launches=launches,
-                peak_device_gib=peak_gib)
+                rescore_launches=r_launches, peak_device_gib=peak_gib)
 
 
 def write_mzml_scans(path, scans):
@@ -2430,6 +2710,7 @@ def main():
     # the package comes first: without it nothing below can run
     from sage_tpu_torch.ops import _cuda_build, pallas_sort, pallas_stage1
     from sage_tpu_torch.ops import narrow_banded as tbanded
+    from sage_tpu_torch.ops import rescore as trescore
     from sage_tpu_torch.ops import open_search as topen
     from sage_tpu_torch.ops import search as tsearch
 
@@ -2465,27 +2746,36 @@ def main():
                                            search11, tsv11, tmp, dev, times)
         db = runner.database
         del runner
+        # the rescore's inputs on the main paths, for phase 25
+        rescore_in = {}
         narrow, k_stage1, narrow_fused = narrow_phases(
-            torch, tsearch, pallas_stage1, db, spectra, dev, times)
+            torch, tsearch, pallas_stage1, db, spectra, dev, times,
+            rescore_in)
         open_rec, k_sort, open_fused = open_phases(
-            torch, tsearch, topen, pallas_sort, db, spectra, dev, times)
+            torch, tsearch, topen, pallas_sort, db, spectra, dev, times,
+            rescore_in)
         cli_rec = cli_phase(torch, tmp, times)
 
     def reset_stage1():
         pallas_stage1.launches = 0
+        trescore.launches = 0
 
     def reset_sorts():
         for k in pallas_sort.launches:
             pallas_sort.launches[k] = 0
+        trescore.launches = 0
 
     td_narrow = two_dispatch_phase(
         torch, tsearch, "13_two_dispatch_narrow", db, narrow_fused,
         "stage1_counts",
-        (reset_stage1, lambda: {"stage1_counts": pallas_stage1.launches}),
-        times)
+        (reset_stage1, lambda: {"stage1_counts": pallas_stage1.launches,
+                                "rescore": trescore.launches}),
+        times, capture=(rescore_in, "two_dispatch"))
     td_open = two_dispatch_phase(
         torch, tsearch, "14_two_dispatch_open", db, open_fused, "row_sort",
-        (reset_sorts, lambda: pallas_sort.launches), times, open_search=True)
+        (reset_sorts, lambda: {**pallas_sort.launches,
+                               "rescore": trescore.launches}),
+        times, open_search=True)
 
     mods = {"search": tsearch, "banded": tbanded, "open": topen,
             "sort": pallas_sort, "stage1": pallas_stage1}
@@ -2496,9 +2786,12 @@ def main():
                           cpu_spectra=64)
     lowres = banded_phase(torch, mods, db, spectra, times,
                           "16_banded_lowres",
-                          [("da", -0.5, 0.5), ("da", -1.0, 1.0)], lowres=True)
+                          [("da", -0.5, 0.5), ("da", -1.0, 1.0)], lowres=True,
+                          capture=(rescore_in, "banded_lowres"))
     crossover = crossover_phase(torch, mods, db, spectra, times)
     chim = chimera_phase(torch, tsearch, pallas_stage1, db, times)
+    rescore_rows = rescore_phase(torch, trescore, rescore_in, dev, times)
+    del rescore_in
     n_pep, n_frag = len(db), int(db.num_fragments)
     del db, spectra
     with tempfile.TemporaryDirectory() as tmp:
@@ -2544,8 +2837,33 @@ def main():
             "two_dispatch_open": td_open["launches_all"]["cluster_sort"],
             "sharded_open": grid["sort_launches"]["cluster_sort"]},
     }
+    # the rescore's main path is phase 3's narrow batch; its rows at the
+    # other captured inputs stay beside it
+    r3 = rescore_rows["narrow"]
+    k_rescore = {
+        "name": "rescore", "launches": narrow["rescore_launches"],
+        "max_abs_err": 0,
+        **{k: r3[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                              "bound_share", "real_bound_ms",
+                              "real_bound_by", "real_bound_share",
+                              "plain_host_ms", "kernel_host_ms")},
+        "library_ms": None,
+        "by_input": rescore_rows,
+        "launches_by_path": {
+            "narrow_fused": narrow["rescore_launches"],
+            "open_fused": open_rec["rescore_launches"],
+            "runner": runner_rec["rescore_launches"],
+            "runner_tdf": tdf_rec["rescore_launches"],
+            "two_dispatch_narrow": td_narrow["launches_all"]["rescore"],
+            "two_dispatch_open": td_open["launches_all"]["rescore"],
+            "banded": banded["rescore_launches"],
+            "banded_lowres": lowres["rescore_launches"],
+            "chimera": chim["rescore_launches"],
+            "sharded": grid["rescore_launches"],
+            "sharded_runner": grid_runner["rescore_launches"]},
+    }
     kernels = {"kernels": []}
-    for k in (k_stage1, k_row, k_cluster):
+    for k in (k_stage1, k_row, k_cluster, k_rescore):
         src, replaces = KERNELS[k["name"]]
         kernels["kernels"].append({
             "name": k["name"], "route": "cuda", "source": src,

@@ -10,11 +10,12 @@ over the per-charge query-window bounds (the CUDA kernel in
 ``csrc/stage1_counts.cu``). Windows of ``SAGE_TPU_OPEN_THRESHOLD`` (8192)
 candidates or more take the peak-major open search
 (``ops/open_search.py``, whose entry rows the kernels of
-``csrc/row_sort.cu`` and ``csrc/bitonic_merge.cu`` sort). One
+``csrc/row_sort.cu`` and ``csrc/cluster_sort.cu`` sort). One
 merge/rescore/select pass then keeps the top-K candidates per spectrum
-by the PreScore order, rescores them with full ladders, and selects the
-reported rows by an f32 hyperscore key that the host verifies with exact
-f64 arithmetic.
+by the PreScore order, rescores them with full ladders (the CUDA kernel
+in ``csrc/rescore.cu``, ``ops/rescore.py``), and selects the reported
+rows by an f32 hyperscore key that the host verifies with exact f64
+arithmetic.
 
 Where the fused path's preconditions do not hold (its bit-packed lanes,
 ``SAGE_TPU_FUSED=0``, an open batch split deeper than one level, the
@@ -69,6 +70,11 @@ from .open_search import (
 )
 from .narrow_banded import NarrowBanded
 from .pallas_stage1 import stage1_counts
+from .rescore import (
+    _SERIES_NTERM,
+    rescore_candidate,
+    tol_bounds_static,
+)
 
 log = logging.getLogger("sage_tpu_torch")
 
@@ -90,10 +96,6 @@ _SERIES_SEED = {
     "y": F32(0.0),
     "z": -_NH3,
 }
-_SERIES_NTERM = {"a": True, "b": True, "c": True, "x": False, "y": False, "z": False}
-
-# Items of the [items, S, L, Pk] rescore compare grid per chunk.
-_RESCORE_CHUNK = 1 << 26
 
 
 def max_fragment_charge(cfg: Optional[int], precursor_charge: int) -> int:
@@ -197,27 +199,6 @@ class SearchParams:
     score_type: str = SAGE_HYPERSCORE
 
 
-def _fdiv(x: torch.Tensor, s) -> torch.Tensor:
-    """``x / s`` rounded as one IEEE f32 division on every device: the
-    divisor is a tensor of x's shape, never a host scalar (CUDA computes
-    a tensor divided by a host scalar as a multiply by its reciprocal)."""
-    return x / torch.full_like(x, float(s))
-
-
-def tol_bounds_static(kind: str, lo: float, hi: float, center):
-    """Tolerance.bounds as f32 tensor ops with the reference's op order
-    (mass.rs:21-35): ``c + (c * lo) / s`` for ppm (s = 1e6) and pct
-    (s = 100), ``c + lo`` for da. The CUDA kernel computes the same
-    expression with the same rounding."""
-    lo = float(np.float32(lo))
-    hi = float(np.float32(hi))
-    if kind in ("ppm", "pct"):
-        s = 1e6 if kind == "ppm" else 100.0
-        return (center + _fdiv(center * lo, s),
-                center + _fdiv(center * hi, s))
-    return center + lo, center + hi
-
-
 def _tol_tuple(tol: Tolerance):
     return (tol.kind, float(tol.lo), float(tol.hi))
 
@@ -294,150 +275,6 @@ def count_fragment_matches(f, peaks, frag_tol, maxz, Z):
         acc += (fx >= lo_q).sum(dim=(1, 3, 4), dtype=torch.int32)
         acc -= (fx > hi_q).sum(dim=(1, 3, 4), dtype=torch.int32)
     return acc
-
-
-def _rescore_match(f, pkm, pki, maxz, frag_tol, Z):
-    """Per-(fragment, charge) most intense in-window peak for items
-    ``f`` [n, k, S, L] against their spectrum's peaks ``pkm``/``pki``
-    [n, Pk]: returns (matched bool, intensity, mass), each
-    [n, k, S, L, Z]."""
-    kind, tlo, thi = frag_tol
-    neg_inf = torch.tensor(-np.inf, dtype=torch.float32, device=f.device)
-    minus1 = torch.tensor(-1.0, dtype=torch.float32, device=f.device)
-    pm = pkm[:, None, None, None, :]
-    pi = pki[:, None, None, None, :]
-    live_pk = pi >= 0
-    matched, best_i, best_m = [], [], []
-    for zi in range(Z):
-        mzc = _fdiv(f, zi + 1)
-        lo, hi = tol_bounds_static(kind, tlo, thi, mzc)
-        z_ok = ((zi + 1) < maxz)[:, :, None, None, None]
-        qual = (pm >= lo[..., None]) & (pm <= hi[..., None]) & live_pk & z_ok
-        val = torch.where(qual, pi, minus1)
-        # Most intense in-window peak: a plain max gives the intensity;
-        # the matched peak's mass is the max mass among peaks attaining
-        # it — masses ascend with index, so this reproduces the
-        # ties-to-the-LATER-index rule (spectrum.rs:150-157).
-        best = val.amax(dim=-1)
-        bmass = torch.where(val == best[..., None], pm, neg_inf).amax(dim=-1)
-        m = best >= 0
-        matched.append(m)
-        best_i.append(torch.where(m, best, 0.0))
-        best_m.append(torch.where(m, bmass, 0.0))
-    return (torch.stack(matched, -1), torch.stack(best_i, -1),
-            torch.stack(best_m, -1))
-
-
-def rescore_candidate(f, pkm, pki, maxz, *, series, frag_tol, Z):
-    """The full score_candidate computation (scoring.rs:675-767) for a
-    grid of candidates: per-(fragment, charge) most-intense-peak match,
-    strictly sequential f32 intensity/ppm accumulation in the reference's
-    fragments-iterator order (series, ion, charge), matched counts and
-    longest-run automata.
-
-    f: [n, k, S, L] neutral ladders (invalid slots -inf); pkm/pki: [n, Pk]
-    peak masses/intensities of each row's spectrum; maxz: [n, k] i32
-    exclusive fragment-charge bounds; frag_tol: (kind, lo, hi). Returns
-    (mb, my, summed_b, summed_y, ppm_sum, longest_b, longest_y), each
-    [n, k]. The [n, k, S, L, Pk] compare grid is built a chunk of rows at
-    a time."""
-    n, k, n_series, L = f.shape
-    Pk = pkm.shape[1]
-    dev = f.device
-    is_nterm = torch.tensor([_SERIES_NTERM[s] for s in series],
-                            dtype=torch.bool, device=dev)
-    matched = torch.empty((n, k, n_series, L, Z), dtype=torch.bool,
-                          device=dev)
-    pk_i = torch.empty((n, k, n_series, L, Z), dtype=torch.float32,
-                       device=dev)
-    pk_m = torch.empty_like(pk_i)
-    step = max(1, _RESCORE_CHUNK // max(k * n_series * L * Pk, 1))
-    for a in range(0, n, step):
-        b = min(a + step, n)
-        matched[a:b], pk_i[a:b], pk_m[a:b] = _rescore_match(
-            f[a:b], pkm[a:b], pki[a:b], maxz[a:b], frag_tol, Z
-        )
-    mz_c = torch.stack([_fdiv(f, zi + 1) for zi in range(Z)], dim=-1)
-
-    # Per-fragment ppm term, f32 in the reference op order
-    # (scoring.rs:719-720).
-    d = (mz_c - pk_m).abs()
-    denom = mz_c + pk_m
-    one = torch.ones((), dtype=torch.float32, device=dev)
-    ppm_t = torch.where(
-        matched,
-        ((pk_i * d) * 2e6) / torch.where(denom == 0, one, denom),
-        0.0,
-    )
-
-    bm3 = is_nterm[:, None, None]  # [S, 1, 1]
-    mb = (matched & bm3).sum(dim=(2, 3, 4), dtype=torch.int32)
-    my = (matched & ~bm3).sum(dim=(2, 3, 4), dtype=torch.int32)
-
-    # Strictly sequential f32 sums in fragments-iterator order (series,
-    # ion, charge): one eager add per term, never a tree reduction.
-    # Adding 0.0f is exact, so unmatched slots can stay in the chain.
-    T = n_series * L * Z
-    terms = torch.stack(
-        [torch.where(bm3, pk_i, 0.0).reshape(n, k, T),
-         torch.where(~bm3, pk_i, 0.0).reshape(n, k, T),
-         ppm_t.reshape(n, k, T)],
-        dim=-1,
-    )  # [n, k, T, 3]
-    sums = torch.zeros((n, k, 3), dtype=torch.float32, device=dev)
-    for i in range(T):
-        sums = sums + terms[:, :, i]
-
-    # Longest-run automata (scoring.rs:771-793) — all N-term series feed
-    # one run in series order, all C-term series the other.
-    m_any = matched.any(dim=-1)  # [n, k, S, L]
-    ion_idx = torch.arange(L, dtype=torch.int32, device=dev)
-    runs = []
-    for term in (True, False):
-        sel = [i for i, s in enumerate(series) if _SERIES_NTERM[s] == term]
-        if len(sel) == 1:
-            runs.append(longest_run_vec(m_any[:, :, sel[0]], ion_idx))
-        elif sel:
-            flags = m_any[:, :, sel].reshape(n, k, len(sel) * L)
-            runs.append(longest_run_scan(flags, ion_idx.repeat(len(sel))))
-        else:
-            runs.append(torch.zeros((n, k), dtype=torch.int32, device=dev))
-    return mb, my, sums[..., 0], sums[..., 1], sums[..., 2], runs[0], runs[1]
-
-
-def longest_run_scan(flags, idx):
-    """The reference's Run automaton verbatim (scoring.rs:771-793) as a
-    sequential loop over (matched, ion_index) pairs along the last axis
-    of ``flags`` [..., T] (``idx`` [T] i32) — the general form that
-    handles several series feeding one terminus's Run."""
-    shape = flags.shape[:-1]
-    zero = torch.zeros(shape, dtype=torch.int32, device=flags.device)
-    start, length, last, longest = zero, zero, zero, zero
-    one = torch.ones((), dtype=torch.int32, device=flags.device)
-    for t in range(flags.shape[-1]):
-        m = flags[..., t]
-        l = idx[t]
-        skip = m & (last == l)
-        extend = m & ~skip & (start + length == l)
-        restart = m & ~skip & ~extend
-        length = torch.where(extend, length + 1, torch.where(restart, one, length))
-        start = torch.where(restart, l, start)
-        longest = torch.where(extend | restart, torch.maximum(longest, length),
-                              longest)
-        last = torch.where(m & ~skip, l, last)
-    return longest
-
-
-def longest_run_vec(flags, ion_idx):
-    """Single-series terminus: the Run automaton reduces to "longest run
-    of consecutive matched ion indices with index 0 swallowed" (``last``
-    inits to 0, so the first visit of l=0 always takes the skip branch).
-    Exactly computable with an integer cumulative max along the last
-    axis: run_len[l] = l - (last unmatched index <= l)."""
-    m1 = flags & (ion_idx > 0)
-    nf = torch.where(m1, torch.full_like(ion_idx, -1), ion_idx)
-    prev_nf = torch.cummax(nf, dim=-1).values
-    return torch.where(m1, ion_idx - prev_nf, 0).amax(dim=-1).to(torch.int32)
 
 
 def pipeline_stream(batches, admit, advance, finish):
@@ -2121,8 +1958,8 @@ class Scorer:
         """``rescore_candidate`` for the items ``ints`` [3, N] (spectrum,
         peptide, exclusive fragment-charge bound), one candidate each:
         f32 [N, 7] (mb, my, summed_b, summed_y, ppm_sum, longest_b,
-        longest_y). The rescore builds its [items, S, L, Pk] compare grid
-        a chunk of items at a time."""
+        longest_y): one item a row of ``rescore_candidate`` (k = 1), its
+        spectrum's peaks gathered per item."""
         spec = ints[0].long()
         f = self.tables.lad_full[ints[1].long()][:, None]  # [N, 1, S, L]
         mb, my, sb, sy, pp, lb, ly = rescore_candidate(

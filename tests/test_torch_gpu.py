@@ -1,5 +1,6 @@
-"""The port on a CUDA device: the stage-1, row-sort and cluster-sort kernels
-against their plain versions on the card, and the whole narrow, banded,
+"""The port on a CUDA device: the stage-1, row-sort, cluster-sort and
+rescore kernels against their plain versions on the card, and the whole
+narrow, banded,
 chimeric and open paths (fused and two-dispatch), the multi-device grid
 (four shards on the one card) and the Runner on the card against the
 CPU.
@@ -22,7 +23,10 @@ from sage_tpu_torch.chem.fasta import Fasta
 from sage_tpu_torch.chem.mass import Tolerance
 from sage_tpu_torch.index.builder import DatabaseParams
 from sage_tpu_torch.ops import pallas_sort, pallas_stage1
+from sage_tpu_torch.ops import rescore as trescore
 from sage_tpu_torch.ops.search import Scorer, SearchParams
+
+from _rescore_cases import CARD_SHAPES, RANDOM, crafted_cases, shape_case
 
 pytestmark = pytest.mark.gpu
 
@@ -118,13 +122,56 @@ def test_narrow_path_card_matches_cpu(cuda, small):
     db, spectra = small
     params = _params(("ppm", -10.0, 10.0))
     before = pallas_stage1.launches
+    before_r = trescore.launches
     t_gpu = Scorer(db, params, device=cuda).score_table(spectra)
     assert pallas_stage1.launches > before
+    assert trescore.launches > before_r
     t_cpu = Scorer(db, params, device="cpu").score_table(spectra)
     assert len(t_gpu) == len(t_cpu) > 0
     for k in t_cpu.columns:
         np.testing.assert_array_equal(t_gpu.columns[k], t_cpu.columns[k],
                                       err_msg=f"column {k}")
+
+
+# the CPU tests' shapes and the card's own (one item a row, several warps
+# of items a row, a block past 48 KB of shared memory)
+_RESCORE_RANDOM = RANDOM + list(CARD_SHAPES.values())
+
+
+def _rescore_on_card(case, cuda):
+    args = [torch.from_numpy(case[k]).to(cuda)
+            for k in ("f", "pkm", "pki", "maxz")]
+    kw = dict(series=case["series"], frag_tol=case["frag_tol"], Z=case["Z"])
+    before = trescore.launches
+    got = trescore.rescore_candidate(*args, **kw)
+    launched = trescore.launches - before
+    want = trescore.rescore_candidate_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert launched == (case["maxz"].size > 0)
+    for name, g, w in zip(("mb", "my", "summed_b", "summed_y", "ppm_sum",
+                           "longest_b", "longest_y"), got, want):
+        assert g.device == w.device and g.dtype == w.dtype, name
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert torch.equal(g, w), name
+    return got
+
+
+@pytest.mark.parametrize("name", sorted(crafted_cases()))
+def test_rescore_kernel_crafted(cuda, name):
+    """The rescore kernel against its plain version on the card at the
+    edge cases, bit for bit."""
+    _rescore_on_card(crafted_cases()[name], cuda)
+
+
+@pytest.mark.parametrize(
+    "series,L,Pk,Z,tol,n,k", _RESCORE_RANDOM,
+    ids=[f"{''.join(s)}-L{L}-Pk{P}-Z{Z}-{t}-n{n}-k{k}"
+         for s, L, P, Z, t, n, k in _RESCORE_RANDOM])
+def test_rescore_kernel_random(cuda, series, L, Pk, Z, tol, n, k):
+    case = shape_case((series, L, Pk, Z, tol, n, k), seed_extra=k)
+    got = _rescore_on_card(case, cuda)
+    assert int(got[0].sum() + got[1].sum()) > 0
 
 
 @pytest.mark.parametrize("B,F,block", [
@@ -284,9 +331,11 @@ def test_two_dispatch_card_matches_cpu(cuda, small, monkeypatch, regime):
         params = _params(("ppm", -10.0, 10.0))
         count = ("stage1", lambda: pallas_stage1.launches)
     before = count[1]()
+    before_r = trescore.launches
     t_gpu = list(Scorer(db, params, device=cuda).score_stream(
         [spectra[:96], spectra[96:192]]))
     assert count[1]() > before, count[0]
+    assert trescore.launches > before_r
     t_cpu = list(Scorer(db, params, device="cpu").score_stream(
         [spectra[:96], spectra[96:192]]))
     for a, b in zip(t_gpu, t_cpu):

@@ -36,6 +36,7 @@ def test_imports_with_jax_and_sage_tpu_blocked():
         "sys.modules['sage_tpu'] = None\n"
         "import sage_tpu_torch.ops.search\n"
         "import sage_tpu_torch.ops.pallas_stage1\n"
+        "import sage_tpu_torch.ops.rescore\n"
         "import sage_tpu_torch.ops.pallas_sort\n"
         "import sage_tpu_torch.ops.open_search\n"
         "import sage_tpu_torch.ops.narrow_banded\n"

@@ -196,27 +196,40 @@ seconds):
     processes summed), 13, 17, phase 15's candidate-major run, 22
     (``sharded_narrow``) and 24 (``sharded_runner``); row sort: 6, 14,
     15, 16, 23 (``sharded_open``); cluster sort: 16, 6, 14, 23; phases 15
-    and 16 count their banded runs). The cluster kernel's
+    and 16 count their banded runs; stage 1 and the rescore also
+    count phase 26's two runs). The cluster kernel's
     times are phase 16's; phase 7's lowered-limit run adds
     ``forced_launches``; the rescore kernel's main path is phase 3, its
-    paths 3, 6, 11, 13-17 (15 and 16 banded), 20, 22-24, its times
-    phase 25's at phase 3's input.
-25. Rescore kernel against plain (runs after phase 17): the wrapper's
-    inputs captured, outside every timed run, at phase 3's narrow and
+    paths 3, 6, 11, 13-17 (15 and 16 banded), 20, 22-24 and 26, its
+    times phase 25's at phase 3's input.
+25. Rescore kernel against plain (runs after phase 17): the inputs of
+    ``rescore_indexed`` (the ladder table, pep, spec, the peak rows, maxz
+    and live) captured, outside every timed run, at phase 3's narrow and
     phase 6's open warm-up batch, phase 13's two-dispatch items (k = 1;
     an untimed run of its first batch) and phase 16's +-0.5 Da warm-up
-    batch, and crafted edge shapes (equal intensities, zero
-    intensities, a zero denominator, -inf slots under ppm, rows of pads,
-    n * k == 0, several warps of items a row, a block past 48 KB of
-    shared memory): all seven outputs bit-equal to the plain version on
-    the card. At each captured input, timed with CUDA events: kernel,
-    plain version, kernel again, beside the bound (the compares and
-    bytes it counts) and the kernel's share of it, and beside the
-    real-work bound (live items x finite ladder slots x live charges x
-    live peaks, the fused programs' dead merge slots left out) and the
-    share of it; and one call's host
-    seconds without a synchronise (the plain version's launches alone)
-    beside the kernel's.
+    batch, and crafted edge shapes through the thin ``rescore_candidate``
+    form (equal intensities, zero intensities, a zero denominator, -inf
+    slots under ppm and da, rows of pads, n * k == 0, peaks on their IEEE
+    bounds and one ulp either side, runs of equal masses, removed peaks,
+    lo > hi, one item a row, several warps of items a row, the widest
+    ladder, 4 x 64 slots at Z = 4): all seven outputs bit-equal to the
+    plain version on the card. At each captured input, timed with CUDA
+    events: kernel, plain version, kernel again, beside three bounds and
+    the kernel's share of each: this design's (the live items' ladder
+    rows and indices, the peak rows they read up to the first pad, and
+    the outputs against 3.35 TB/s; the binary search's compares and the walk over
+    each range for this run's data against 33.5 T/s), the linear scan's
+    (every item, slot, live charge and peak) and the real-work bound
+    (live items x finite slots x live charges x live peaks); and one
+    call's host seconds without a synchronise beside the kernel's.
+26. Large peak lists (runs after phase 25): 8 spectra of 12,000 peaks
+    (``SpectrumProcessor(12000)``, as ``max_peaks`` 12,000 keeps them),
+    precursor charge 4, fragment charges up to 3 (Z = 3), through the
+    Scorer on the card, fused and two-dispatch (both kernels' counters 0
+    just before each run and > 0 after), every column equal to the CPU
+    port's run; the stage-1 kernel at the fused run's segments and the
+    rescore kernel at both runs' inputs against their plain versions
+    (bit-equal) and timed beside their bounds.
 
 A ``# record:`` line repeats the run's numbers as JSON.
 """
@@ -292,6 +305,10 @@ GRID_OPEN_BATCHES = 2
 # phase 18's inputs: (proteins, MS2 scans, MS1 scans) of each of two files
 LFQ_SMALL = (300, 512, 128)
 LFQ_LARGE = (6000, 4096, 1024)
+# phase 26: spectra of 12,000 peaks (max_peaks 12,000), past the 227 KB
+# that kernels staging a whole peak row in shared memory could hold
+LARGE_PEAKS = 12000
+LARGE_PEAK_SPECTRA = 8
 
 
 def log(*a):
@@ -497,57 +514,25 @@ def rescore_mod():
 
 
 def keep_first(store, key):
-    """A ``Recording`` keep function for the rescore that stores, under
-    ``key``, clones of the tensors (and the keywords) of the first call it
-    sees, as (args, keywords, None): None marks every item live."""
+    """A ``Recording`` keep function for ``rescore_indexed`` that stores,
+    under ``key``, the first call's arguments as (args, keywords): args
+    the seven tensors (lad, pep, spec, pkm, pki, maxz, live), live None
+    where the caller passed none (every item live). The ladder table is
+    the scorer's own (not copied: it is never written); the rest are
+    clones."""
     def keep(out, *a, **k):
         if key not in store:
-            store[key] = (tuple(x.clone() if hasattr(x, "clone") else x
-                                for x in a), dict(k), None)
+            k = dict(k)
+            a = tuple(a) + ((k.pop("live", None),) if len(a) == 6 else ())
+            store[key] = ((a[0],) + tuple(
+                x.clone() if hasattr(x, "clone") else x for x in a[1:]), k)
     return keep
 
 
-class FusedRescoreCapture:
-    """Until the block ends, keep a fused scorer's first rescore inputs
-    under ``store[key]`` as (args, keywords, dead). The fused program
-    rescores all K0 merge slots of each spectrum row and masks out those
-    past the row's live count (``cnt_s``, the slots whose stage-1 count
-    is > 0, a prefix of the row); ``dead`` marks them, from the count
-    that the first fused batch's output carries (its stats rows, column
-    5)."""
-
-    def __init__(self, torch, tsearch, scorer, store, key):
-        self.torch, self.scorer, self.store, self.key = (torch, scorer,
-                                                          store, key)
-        self.rec = Recording(tsearch, "rescore_candidate",
-                             keep_first(store, key))
-
-    def __enter__(self):
-        self.rec.__enter__()
-        self.cnt = []
-        real = self.real = self.scorer._fused_finalize
-
-        def finalize(spectra, d, *a, **k):
-            if not self.cnt:
-                S_pad, Ksel = d["S_pad"], d["Ksel"]
-                self.cnt.append(
-                    d["fused"][S_pad * Ksel:S_pad * (Ksel + 1), 5].clone())
-            return real(spectra, d, *a, **k)
-
-        self.scorer._fused_finalize = finalize
-        return self
-
-    def __exit__(self, *exc):
-        self.rec.__exit__(*exc)
-        self.scorer._fused_finalize = self.real
-        if exc[0] is None:
-            args, kw, _ = self.store[self.key]
-            cnt = self.cnt[0].long()
-            n, k = args[0].shape[:2]
-            assert cnt.shape[0] == n, (self.key, cnt.shape, n)
-            dead = (self.torch.arange(k, device=cnt.device)[None, :]
-                    >= cnt[:, None])
-            self.store[self.key] = (args, kw, dead)
+def capture_rescore(tsearch, store, key):
+    """Until the block ends, keep the first rescore inputs of the
+    Scorer's calls under ``store[key]`` (see :func:`keep_first`)."""
+    return Recording(tsearch, "rescore_indexed", keep_first(store, key))
 
 
 def build_kernels(_cuda_build):
@@ -601,8 +586,7 @@ def narrow_phases(torch, tsearch, pallas_stage1, db, spectra, dev, times,
 
         tsearch.stage1_counts = recording
         try:
-            with FusedRescoreCapture(torch, tsearch, scorer, rescore_in,
-                                     "narrow"):
+            with capture_rescore(tsearch, rescore_in, "narrow"):
                 t0 = time.perf_counter()
                 warm_tables = list(scorer.score_stream([warm]))
                 warm_s = time.perf_counter() - t0
@@ -657,7 +641,7 @@ def narrow_phases(torch, tsearch, pallas_stage1, db, spectra, dev, times,
         log(f"# main path PSMs: {n_psm}")
         breakdown = profile_batch(
             torch, scorer, b1,
-            [(tsearch, "rescore_candidate"), (tsearch, "_topk_layout")],
+            [(tsearch, "rescore_indexed"), (tsearch, "_topk_layout")],
             {"stage1": "stage1_counts", "rescore": "rescore_kernel"},
         )
     out.update(batch=batch, wall_s_2_batches=wall_s,
@@ -827,8 +811,7 @@ def open_phases(torch, tsearch, topen, pallas_sort, db, spectra, dev, times,
 
         topen.bitonic_sort_rows = recording
         try:
-            with FusedRescoreCapture(torch, tsearch, scorer, rescore_in,
-                                     "open"):
+            with capture_rescore(tsearch, rescore_in, "open"):
                 t0 = time.perf_counter()
                 warm_t = list(scorer.score_stream([warm]))
                 warm_s = time.perf_counter() - t0
@@ -895,7 +878,7 @@ def open_phases(torch, tsearch, topen, pallas_sort, db, spectra, dev, times,
         breakdown = profile_batch(
             torch, scorer, batches[0],
             [(topen, "_probe"), (tsearch, "_device_open_count"),
-             (topen, "bitonic_sort_rows"), (tsearch, "rescore_candidate")],
+             (topen, "bitonic_sort_rows"), (tsearch, "rescore_indexed")],
             {"row_sort": "row_sort_kernel",
              "cluster_sort": "cluster_sort_kernel",
              "rescore": "rescore_kernel"},
@@ -1885,8 +1868,7 @@ def two_dispatch_phase(torch, tsearch, name, db, fused, kernel, counts,
             ph["score_table_ms"] = (time.perf_counter() - t0) * 1e3
             if capture:
                 # the first batch once more, untimed, for its rescore inputs
-                with Recording(tsearch, "rescore_candidate",
-                               keep_first(*capture)):
+                with capture_rescore(tsearch, *capture):
                     scorer.score_table(batches[0])
                 sync()
         finally:
@@ -1987,8 +1969,7 @@ def banded_phase(torch, mods, db, spectra, times, name, frags,
             reruns0 = scorer.fused_reruns
             if capture:
                 capture[0].pop(capture[1], None)
-                with FusedRescoreCapture(torch, tsearch, scorer,
-                                         *capture):
+                with capture_rescore(tsearch, *capture):
                     list(scorer.score_stream([warm]))
             else:
                 list(scorer.score_stream([warm]))
@@ -2121,7 +2102,7 @@ def banded_phase(torch, mods, db, spectra, times, name, frags,
         breakdown = profile_batch(
             torch, scorer, batch,
             [(tbanded, "_bounded_search"), (tbanded, "_open_count_core"),
-             (topen, "bitonic_sort_rows"), (tsearch, "rescore_candidate")],
+             (topen, "bitonic_sort_rows"), (tsearch, "rescore_indexed")],
             {"row_sort": "row_sort_kernel",
              "cluster_sort": "cluster_sort_kernel",
              "rescore": "rescore_kernel"},
@@ -2172,7 +2153,7 @@ def crossover_phase(torch, mods, db, spectra, times):
     warm, batch = spectra[:B], spectra[B:2 * B]
     flags = {"banded": "1", "candidate_major": "0"}
     ranged = [(tbanded, "_bounded_search"), (tbanded, "_open_count_core"),
-              (tsearch, "_topk_layout"), (tsearch, "rescore_candidate")]
+              (tsearch, "_topk_layout"), (tsearch, "rescore_indexed")]
     kernel_keys = {"stage1_counts": "stage1_counts",
                    "row_sort": "row_sort_kernel",
                    "cluster_sort": "cluster_sort_kernel",
@@ -2261,12 +2242,8 @@ RESCORE_OUTS = ("mb", "my", "summed_b", "summed_y", "ppm_sum", "longest_b",
                 "longest_y")
 
 
-def rescore_edge_inputs():
-    """Phase 25's crafted inputs, by name: the edge cases and the card's
-    random shapes (one item a row, more items a row than a block has
-    warps, a block past 48 KB of shared memory) of
-    tests/_rescore_cases.py, loaded by path, as the card's tests make
-    them."""
+def rescore_cases_module():
+    """tests/_rescore_cases.py, loaded by path (it imports numpy only)."""
     import importlib.util
 
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
@@ -2274,103 +2251,305 @@ def rescore_edge_inputs():
     spec = importlib.util.spec_from_file_location("_rescore_cases", path)
     cases = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cases)
-    out = cases.crafted_cases()
+    return cases
+
+
+def rescore_edge_inputs():
+    """Phase 25's crafted inputs, by name: the edge cases whose rows
+    ascend in mass, as the kernel requires (peaks on their IEEE bounds
+    among them), and the card's random shapes (one item a row,
+    more items a row than a block has warps, the widest ladder) of
+    tests/_rescore_cases.py, as the card's tests make them."""
+    cases = rescore_cases_module()
+    out = cases.kernel_cases()
     for name, shape in cases.CARD_SHAPES.items():
         out[name] = cases.shape_case(shape, seed_extra=shape[-1])
     return out
 
 
+def rescore_check(torch, trescore, args, kw, what):
+    """The kernel against its plain version on the indexed form's
+    ``args`` (lad, pep, spec, pkm, pki, maxz, live): all seven outputs
+    bit-equal."""
+    got = trescore.rescore_indexed(*args, **kw)
+    want = trescore.rescore_indexed_plain(*args, **kw)
+    torch.cuda.synchronize()
+    for name, g, w in zip(RESCORE_OUTS, got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, (what, name)
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert torch.equal(g, w), (what, name)
+    return got
+
+
+def rescore_work(torch, trescore, args, kw):
+    """Bytes and compares of one rescore call, three ways. The linear
+    scan's bound: every item x slot x live charge x peak of its row, two
+    compares each, and the bytes of the gathered form (the items'
+    ladders, a peak row a row of items, maxz and the outputs). The
+    real-work bound: the same over live items, finite slots, live charges
+    and live peaks (intensity >= 0). This design's bound: the bytes of the
+    live items' ladder rows; of each peak row they read, its peaks short
+    of the +inf pads plus the one pad that ends a walk; of pep and maxz at
+    the live items and of spec and live; and of the outputs, each moved
+    once, against the compares its search
+    needs for this run's data: for each live (finite slot, live charge)
+    pair, ceil(log2(Pk + 1)) for the range's start a, and the walk's
+    b - a peaks plus the one that ends it (when b < Pk);
+    torch.searchsorted on the card gives a and b, and a NaN bound gives
+    the empty range."""
+    lad, pep, spec, pkm, pki, maxz, live = args
+    kind, tlo, thi = kw["frag_tol"]
+    Z = kw["Z"]
+    n, k = pep.shape
+    P, S, L = lad.shape
+    B, Pk = pkm.shape
+    zlive = (maxz.long() - 1).clamp(0, Z)
+    nl = (torch.full((n,), k, device=pep.device) if live is None
+          else live.long().clamp(0, k))
+    is_live = torch.arange(k, device=pep.device)[None, :] < nl[:, None]
+    nbytes10 = float(n * k * S * L * 4 + 2 * n * Pk * 4 + n * k * 4
+                     + 7 * n * k * 4)
+    ops10 = float(zlive.sum()) * S * L * Pk * 2
+    rows = spec.long().clamp(0, B - 1)
+    r_idx, j_idx = is_live.nonzero(as_tuple=True)
+    f = lad[pep[r_idx, j_idx].long().clamp(0, P - 1)]  # [N, S, L]
+    zl = zlive[r_idx, j_idx]
+    live_pk = (pki >= 0).sum(1)[rows[r_idx]]
+    finite = torch.isfinite(f).sum((1, 2))
+    real = float((finite * zl * live_pk).sum()) * 2
+    read = torch.unique(rows[nl > 0])
+    row_pk = ((pkm[read] < np.inf).sum(1) + 1).clamp(max=Pk)
+    nbytes = float(r_idx.numel() * S * L * 4 + int(row_pk.sum()) * 8
+                   + (2 * r_idx.numel() + 2 * n) * 4 + 7 * n * k * 4)
+    search = 0.0
+    pairs = 0
+    log2 = math.log2
+    pm_all = pkm[rows[r_idx]]
+    fl = f.reshape(f.shape[0], S * L)
+    step = max(1, (1 << 24) // max(S * L + Pk, 1))
+    for zi in range(Z):
+        for a0 in range(0, fl.shape[0], step):
+            sl = slice(a0, a0 + step)
+            mz = trescore._fdiv(fl[sl], zi + 1)
+            lo, hi = trescore.tol_bounds_static(kind, tlo, thi, mz)
+            pm = pm_all[sl].contiguous()
+            ok = torch.isfinite(fl[sl]) & (zi < zl[sl])[:, None]
+            lo_s = torch.where(torch.isnan(lo), np.inf, lo).contiguous()
+            hi_s = torch.where(torch.isnan(hi), -np.inf, hi).contiguous()
+            ai = torch.searchsorted(pm, lo_s, side="left")
+            bi = torch.maximum(torch.searchsorted(pm, hi_s, side="right"), ai)
+            walk = bi - ai + (bi < Pk).long()
+            search += float((ok * (math.ceil(log2(Pk + 1)) + walk)).sum())
+            pairs += int(ok.sum())
+    return dict(bytes10=nbytes10, ops10=ops10, real10=real, bytes=nbytes,
+                search_compares=search, live_pairs=pairs,
+                live_items=int(r_idx.numel()),
+                dead_items=int(n * k - r_idx.numel()))
+
+
+def time_rescore(torch, trescore, args, kw, path, reps=10):
+    """Kernel, plain version and kernel again with CUDA events at one
+    captured input, beside the three bounds; one call of each timed on
+    the host's clock without a synchronise. Returns the row."""
+    sync = torch.cuda.synchronize
+    w = rescore_work(torch, trescore, args, kw)
+    b10, b10_by = bound_ms(w["bytes10"], w["ops10"], F32_COMPARES_PER_S)
+    r10, r10_by = bound_ms(w["bytes10"], w["real10"], F32_COMPARES_PER_S)
+    nb, nb_by = bound_ms(w["bytes"], w["search_compares"],
+                         F32_COMPARES_PER_S)
+
+    def kern():
+        return trescore.rescore_indexed(*args, **kw)
+
+    def plain():
+        return trescore.rescore_indexed_plain(*args, **kw)
+
+    km1 = exec_ms(kern, reps)
+    p_ms = exec_ms(plain, 2)
+    km2 = exec_ms(kern, reps)
+    host = {}
+    for what, fn in (("plain", plain), ("kernel", kern)):
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        host[what] = (time.perf_counter() - t0) * 1e3
+        sync()
+    k_ms = (km1 + km2) / 2
+    n, k = args[1].shape
+    P, S, L = args[0].shape
+    Pk, Z = args[3].shape[1], kw["Z"]
+    out = kern()
+    matched = int((out[0].long() + out[1].long()).sum())
+    row = dict(
+        shape=[n, k, S, L], Pk=Pk, Z=Z, ms=k_ms, ms_runs=[km1, km2],
+        plain_ms=p_ms, bound_ms=nb, bound_by=nb_by, bound_share=nb / k_ms,
+        bytes=w["bytes"], search_compares=w["search_compares"],
+        scan_bound_ms=b10, scan_bound_by=b10_by, scan_bound_share=b10 / k_ms,
+        scan_compares=w["ops10"], scan_bytes=w["bytes10"],
+        real_bound_ms=r10, real_bound_by=r10_by, real_bound_share=r10 / k_ms,
+        real_compares=w["real10"], live_items=w["live_items"],
+        dead_items=w["dead_items"], live_pairs=w["live_pairs"],
+        matched_pairs=matched, plain_host_ms=host["plain"],
+        kernel_host_ms=host["kernel"])
+    log(f"# rescore {path} [n {n}, k {k}, S {S}, L {L}] Pk {Pk} Z {Z}: "
+        f"bit-equal; kernel {km1:.4f} / {km2:.4f} ms, plain {p_ms:.2f} ms; "
+        f"this design's bound {nb:.4f} ms ({nb_by}; {w['bytes'] / 1e6:.2f} "
+        f"MB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s, "
+        f"{w['search_compares'] / 1e9:.4f} G search compares at "
+        f"{F32_COMPARES_PER_S / 1e12:.1f} T/s), share {nb / k_ms:.3f}; "
+        f"the linear scan's bound {b10:.4f} ms ({b10_by}; "
+        f"{w['ops10'] / 1e9:.3f} G compares, {w['bytes10'] / 1e6:.1f} MB), "
+        f"share {b10 / k_ms:.3f}; "
+        f"the real-work bound {r10:.4f} ms ({r10_by}; "
+        f"{w['real10'] / 1e9:.3f} G compares; {w['dead_items']} of {n * k} "
+        f"items dead), share {r10 / k_ms:.3f}; {w['live_pairs']} live "
+        f"(finite slot, live charge) pairs, {matched} matched (the serial "
+        f"tail's steps); one call's host ms without "
+        f"a synchronise: plain {host['plain']:.2f}, kernel "
+        f"{host['kernel']:.3f}")
+    return row
+
+
 def rescore_phase(torch, trescore, captured, dev, times):
     """Phase 25: the rescore kernel against its plain version on the card
-    at the crafted inputs and at the inputs ``captured`` on the main paths
-    (path -> (args, keywords, dead items or None)), all seven outputs
-    bit-equal; at each captured input the kernel, the plain version and
-    the kernel again, timed with CUDA events beside the bound and the
-    real-work bound, and one call of each timed on the host's clock
-    without a synchronise. Returns the rows by path."""
-    sync = torch.cuda.synchronize
-
-    def check(args, kw, what):
-        got = trescore.rescore_candidate(*args, **kw)
-        want = trescore.rescore_candidate_plain(*args, **kw)
-        sync()
-        for name, g, w in zip(RESCORE_OUTS, got, want):
-            assert g.dtype == w.dtype and g.shape == w.shape, (what, name)
-            if g.dtype == torch.float32:
-                g, w = g.view(torch.int32), w.view(torch.int32)
-            assert torch.equal(g, w), (what, name)
-
+    at the crafted inputs (through the thin ``rescore_candidate`` form)
+    and at the inputs ``captured`` on the main paths (path -> (args,
+    keywords), the indexed form), all seven outputs bit-equal; at each
+    captured input :func:`time_rescore`. Returns the rows by path."""
     rows = {}
     with Phase("25_rescore_kernel_vs_plain", times):
         edge = rescore_edge_inputs()
         for name, c in edge.items():
-            args = [torch.from_numpy(c[k]).to(dev)
-                    for k in ("f", "pkm", "pki", "maxz")]
+            f, pkm, pki, maxz = (torch.from_numpy(c[k]).to(dev)
+                                 for k in ("f", "pkm", "pki", "maxz"))
+            kw = dict(series=c["series"], frag_tol=c["frag_tol"], Z=c["Z"])
             n0 = trescore.launches
-            check(args, dict(series=c["series"], frag_tol=c["frag_tol"],
-                             Z=c["Z"]), name)
+            got = trescore.rescore_candidate(f, pkm, pki, maxz, **kw)
+            want = trescore.rescore_candidate_plain(f, pkm, pki, maxz, **kw)
+            torch.cuda.synchronize()
+            for out, g, w in zip(RESCORE_OUTS, got, want):
+                if g.dtype == torch.float32:
+                    g, w = g.view(torch.int32), w.view(torch.int32)
+                assert torch.equal(g, w), (name, out)
             assert trescore.launches - n0 == (c["maxz"].size > 0), name
         log(f"# rescore kernel vs plain: {len(edge)} crafted inputs "
             f"{sorted(edge)} bit-equal (all seven outputs)")
-        for path, (args, kw, dead) in captured.items():
-            check(args, kw, path)
-            f, pkm, pki, maxz = args
-            n, k, S, L = f.shape
-            Pk, Z = pkm.shape[1], kw["Z"]
-            zlive = (maxz.long() - 1).clamp(0, Z)
-            ops = float(zlive.sum()) * S * L * Pk * 2
-            # the real work: live items x finite ladder slots x live
-            # charges x live peaks (pki >= 0) of the row
-            work = (torch.isfinite(f).sum((2, 3), dtype=torch.int64) * zlive
-                    * (pki >= 0).sum(1, dtype=torch.int64)[:, None])
-            n_dead = 0
-            if dead is not None:
-                work = work.masked_fill(dead, 0)
-                n_dead = int(dead.sum())
-            real = float(work.sum()) * 2
-            nbytes = float(f.numel() * 4 + 2 * pkm.numel() * 4
-                           + maxz.numel() * 4 + 7 * n * k * 4)
-            b_ms, b_by = bound_ms(nbytes, ops, F32_COMPARES_PER_S)
-            r_ms, r_by = bound_ms(nbytes, real, F32_COMPARES_PER_S)
-
-            def kern():
-                return trescore.rescore_candidate(*args, **kw)
-
-            def plain():
-                return trescore.rescore_candidate_plain(*args, **kw)
-
-            km1 = exec_ms(kern, 10)
-            p_ms = exec_ms(plain, 2)
-            km2 = exec_ms(kern, 10)
-            host = {}
-            for what, fn in (("plain", plain), ("kernel", kern)):
-                sync()
-                t0 = time.perf_counter()
-                fn()
-                host[what] = (time.perf_counter() - t0) * 1e3
-                sync()
-            k_ms = (km1 + km2) / 2
-            rows[path] = dict(
-                shape=[n, k, S, L], Pk=Pk, Z=Z, ms=k_ms, ms_runs=[km1, km2],
-                plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-                bound_share=b_ms / k_ms, compares=ops, bytes=nbytes,
-                real_compares=real, real_bound_ms=r_ms, real_bound_by=r_by,
-                real_bound_share=r_ms / k_ms, dead_items=n_dead,
-                plain_host_ms=host["plain"], kernel_host_ms=host["kernel"])
-            log(f"# rescore {path} [n {n}, k {k}, S {S}, L {L}] Pk {Pk} Z {Z}"
-                f": bit-equal; kernel {km1:.3f} / {km2:.3f} ms, plain "
-                f"{p_ms:.2f} ms, bound {b_ms:.4f} ms ({b_by}; "
-                f"{ops / 1e9:.3f} G f32 compares at "
-                f"{F32_COMPARES_PER_S / 1e12:.1f} T/s, {nbytes / 1e6:.1f} MB "
-                f"at {HBM_BYTES_PER_S / 1e12:.2f} TB/s), share of bound "
-                f"{b_ms / k_ms:.3f}; real-work bound {r_ms:.4f} ms ({r_by}; "
-                f"{real / 1e9:.3f} G compares: {n_dead} of {n * k} items "
-                f"dead, pad peaks, -inf slots and dead items "
-                f"{1 - real / ops:.3f} of the compares), share "
-                f"{r_ms / k_ms:.3f}; one call's host ms without a "
-                f"synchronise: plain {host['plain']:.2f}, kernel "
-                f"{host['kernel']:.3f}")
+        for path, (args, kw) in captured.items():
+            rescore_check(torch, trescore, args, kw, path)
+            rows[path] = time_rescore(torch, trescore, args, kw, path)
     return rows
+
+
+def large_peaks_phase(torch, mods, db, times, n_spec=LARGE_PEAK_SPECTRA):
+    """Phase 26: spectra of LARGE_PEAKS peaks (a search with max_peaks
+    12,000; bench.py's database), precursor charge 4 and fragment
+    charges up to 3 (Z = 3), through the Scorer on the card, fused and
+    two-dispatch, with both kernels' counters set to 0 just before each
+    run and > 0 after; every FeatureTable column equal to the CPU port's
+    fused run. The stage-1 kernel at the fused run's captured segments and
+    the rescore kernel at its captured input, each against its plain
+    version, bit-equal, and timed (kernel, plain, kernel)."""
+    tsearch, pallas_stage1, trescore = (mods["search"], mods["stage1"],
+                                        mods["rescore"])
+    from sage_tpu_torch.spectrum.processor import (Precursor, RawSpectrum,
+                                                   SpectrumProcessor)
+
+    sync = torch.cuda.synchronize
+    rec = {}
+    with Phase("26_large_peaks", times):
+        proc = SpectrumProcessor(LARGE_PEAKS, False)
+        arrays = rescore_cases_module().large_peak_arrays(
+            db, n_spec, LARGE_PEAKS + 1000, seed=41)
+        spectra = [proc.process(RawSpectrum(
+            ms_level=2, id=f"scan={i}", centroid=True,
+            precursors=[Precursor(mz=a["prec_mz"], charge=a["charge"])],
+            mz=a["mz"], intensity=a["intensity"]))
+            for i, a in enumerate(arrays)]
+        assert {len(s.masses) for s in spectra} == {LARGE_PEAKS}
+        params = tsearch.SearchParams(
+            precursor_tol=tsearch.Tolerance("ppm", -20.0, 20.0),
+            fragment_tol=tsearch.Tolerance("ppm", -10.0, 10.0),
+            max_fragment_charge=3)
+        segs, store, tables, launches = [], {}, {}, {}
+        real_s1 = tsearch.stage1_counts
+
+        def recording(lad, peaks, ints, **kw):
+            segs.append((lad, peaks, ints, kw))
+            return real_s1(lad, peaks, ints, **kw)
+
+        for fused in ("1", "0"):
+            with EnvSet("SAGE_TPU_FUSED", fused):
+                scorer = tsearch.Scorer(db, params)
+                assert scorer.Z == 3, scorer.Z
+                pallas_stage1.launches = 0
+                trescore.launches = 0
+                tsearch.stage1_counts = recording
+                try:
+                    with capture_rescore(tsearch, store, fused):
+                        t0 = time.perf_counter()
+                        tables[fused] = scorer.score_table(spectra)
+                        sync()
+                        secs = time.perf_counter() - t0
+                finally:
+                    tsearch.stage1_counts = real_s1
+                launches[fused] = {"stage1_counts": pallas_stage1.launches,
+                                   "rescore": trescore.launches}
+                assert all(v > 0 for v in launches[fused].values()), (
+                    fused, launches[fused])
+                log(f"# 26 Scorer at {LARGE_PEAKS} peaks, SAGE_TPU_FUSED="
+                    f"{fused}: {len(tables[fused])} PSMs in {secs:.2f} s, "
+                    f"launches {launches[fused]}")
+                del scorer
+        t0 = time.perf_counter()
+        cpu = tsearch.Scorer(db, params, device="cpu").score_table(spectra)
+        cpu_s = time.perf_counter() - t0
+        assert len(cpu) > 0
+        for fused in ("1", "0"):
+            assert_tables_equal(tables[fused], cpu,
+                                f"26 large peaks fused={fused}")
+        log(f"# 26 columns equal, card (fused and two-dispatch) and CPU "
+            f"({cpu_s:.1f} s), {len(cpu)} PSMs, matched peaks up to "
+            f"{int(cpu.columns['matched_peaks'].max())}")
+        # the stage-1 kernel at the fused run's segments
+        s1 = []
+        for lad, peaks, ints, kw in segs[:3]:
+            got = pallas_stage1.stage1_counts(lad, peaks, ints, **kw)
+            want = pallas_stage1.stage1_counts_plain(lad, peaks, ints, **kw)
+            sync()
+            assert torch.equal(got, want), kw
+            R = ints.shape[1]
+            S = lad.shape[1]
+            nbytes, ops = segment_work(ints.cpu().numpy(), kw["W"],
+                                       kw["Lc"], kw["Z"], S, peaks.shape[1],
+                                       peaks.shape[0])
+            b_ms, b_by = bound_ms(nbytes, ops, F32_COMPARES_PER_S)
+            km1 = exec_ms(lambda: pallas_stage1.stage1_counts(
+                lad, peaks, ints, **kw), 5)
+            p_ms = exec_ms(lambda: pallas_stage1.stage1_counts_plain(
+                lad, peaks, ints, **kw), 1)
+            km2 = exec_ms(lambda: pallas_stage1.stage1_counts(
+                lad, peaks, ints, **kw), 5)
+            k_ms = (km1 + km2) / 2
+            s1.append(dict(R=R, W=kw["W"], Lc=kw["Lc"], Z=kw["Z"],
+                           Pk=peaks.shape[1], ms=k_ms, ms_runs=[km1, km2],
+                           plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                           bound_share=b_ms / k_ms))
+            log(f"# 26 stage1_counts [R {R}, W {kw['W']}, Lc {kw['Lc']}, Z "
+                f"{kw['Z']}] Pk {peaks.shape[1]}: equal to plain; kernel "
+                f"{km1:.3f} / {km2:.3f} ms, plain {p_ms:.1f} ms, bound "
+                f"{b_ms:.4f} ms ({b_by}), share {b_ms / k_ms:.3f}")
+        assert s1 and all(r["Z"] == 3 and r["Pk"] >= LARGE_PEAKS for r in s1)
+        rows = {}
+        for fused, (args, kw) in store.items():
+            path = "fused" if fused == "1" else "two_dispatch"
+            rescore_check(torch, trescore, args, kw, f"26 {path}")
+            rows[path] = time_rescore(torch, trescore, args, kw,
+                                      f"26 {path} at {LARGE_PEAKS} peaks",
+                                      reps=5)
+        rec.update(spectra=n_spec, peaks=LARGE_PEAKS, psms=len(cpu),
+                   launches=launches, cpu_s=cpu_s, stage1=s1, rescore=rows)
+    return rec
 
 
 def chimeric_spectra(db, n, seed=17):
@@ -2778,7 +2957,8 @@ def main():
         times, open_search=True)
 
     mods = {"search": tsearch, "banded": tbanded, "open": topen,
-            "sort": pallas_sort, "stage1": pallas_stage1}
+            "sort": pallas_sort, "stage1": pallas_stage1,
+            "rescore": trescore}
     grid = sharded_phases(torch, mods, db, narrow_fused, open_fused, dev,
                           times)
     banded = banded_phase(torch, mods, db, spectra, times,
@@ -2792,12 +2972,14 @@ def main():
     chim = chimera_phase(torch, tsearch, pallas_stage1, db, times)
     rescore_rows = rescore_phase(torch, trescore, rescore_in, dev, times)
     del rescore_in
+    large = large_peaks_phase(torch, mods, db, times)
     n_pep, n_frag = len(db), int(db.num_fragments)
     del db, spectra
     with tempfile.TemporaryDirectory() as tmp:
         lfq_rec = lfq_phase(torch, pallas_stage1, tmp, times)
 
     # ---- 10. result lines
+    k_stage1["large_peaks"] = large["stage1"]
     k_stage1["launches_by_path"] = {
         "narrow_fused": k_stage1["launches"],
         "runner": runner_rec["stage1_launches"],
@@ -2807,7 +2989,9 @@ def main():
         "chimera": chim["launches"],
         "banded_reference": banded["reference_stage1_launches"],
         "sharded_narrow": grid["stage1_launches"],
-        "sharded_runner": grid_runner["stage1_launches"]}
+        "sharded_runner": grid_runner["stage1_launches"],
+        "large_peaks_fused": large["launches"]["1"]["stage1_counts"],
+        "large_peaks_two_dispatch": large["launches"]["0"]["stage1_counts"]}
     k_row = k_sort[0]
     k_row["launches_by_path"] = {
         "open_fused": k_row["launches"],
@@ -2844,7 +3028,8 @@ def main():
         "name": "rescore", "launches": narrow["rescore_launches"],
         "max_abs_err": 0,
         **{k: r3[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                              "bound_share", "real_bound_ms",
+                              "bound_share", "scan_bound_ms",
+                              "scan_bound_share", "real_bound_ms",
                               "real_bound_by", "real_bound_share",
                               "plain_host_ms", "kernel_host_ms")},
         "library_ms": None,
@@ -2860,7 +3045,10 @@ def main():
             "banded_lowres": lowres["rescore_launches"],
             "chimera": chim["rescore_launches"],
             "sharded": grid["rescore_launches"],
-            "sharded_runner": grid_runner["rescore_launches"]},
+            "sharded_runner": grid_runner["rescore_launches"],
+            "large_peaks_fused": large["launches"]["1"]["rescore"],
+            "large_peaks_two_dispatch": large["launches"]["0"]["rescore"]},
+        "large_peaks": large["rescore"],
     }
     kernels = {"kernels": []}
     for k in (k_stage1, k_row, k_cluster, k_rescore):
@@ -2880,7 +3068,7 @@ def main():
         "two_dispatch_narrow": td_narrow, "two_dispatch_open": td_open,
         "banded": banded, "banded_lowres": lowres, "crossover": crossover,
         "chimera": chim, "sharded": grid, "sharded_runner": grid_runner,
-        "lfq": lfq_rec, **kernels,
+        "large_peaks": large, "lfq": lfq_rec, **kernels,
     }
     record["total_s"] = time.perf_counter() - t_start
     log(f"# chip_smoke: {record['total_s']:.1f} s in all, the build included")

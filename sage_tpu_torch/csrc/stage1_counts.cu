@@ -33,12 +33,21 @@
 // bytes, so the compares bound it.
 //
 // Design. One CTA of 256 threads per row (a batch holds thousands of
-// rows, enough for 132 SMs). The row's Z x Pk bounds are computed once
-// into shared memory as float4 quads of peaks. The row's live fragments
+// rows, enough for 132 SMs). The row's peaks are taken in tiles of up to
+// 1024 (kPeakTile): a tile's Z x (up to 1024) bounds are computed into
+// shared memory as float4 quads of peaks, at most 32 * Z * 256 bytes, so
+// no peak count is too large for a block; every fragment tile of the
+// row then runs against that peak tile, its counts added to the
+// candidates' (a count is a sum of integers, so the order of the tiles
+// does not change it), and the next peak tile follows. A row of up to
+// 1024 peaks -- the search's rows, whose Pk is the batch's longest
+// spectrum, 150 peaks by default -- is one peak tile and one pass over
+// its fragments. The row's live fragments
 // -- (candidate, series, slot) flattened over the live candidates only,
 // so no lane idles at any S * Lc -- are cut into tiles of 256 x 8; the
 // tiles are double-buffered in shared memory with cp.async, so the next
-// tile's loads are in flight during the current tile's compares. Each
+// tile's loads are in flight during the current tile's compares (and
+// are streamed again, from L2, for each further peak tile). Each
 // thread holds 8 consecutive fragments of the tile in registers, and per
 // quad of peaks reads the quad's low and high bounds as two 128-bit
 // broadcast loads, which feed 8 x 4 x 2 compares. Each compare is one
@@ -60,6 +69,7 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kFR = 8;                    // fragments a thread holds
 constexpr int kTile = kThreads * kFR;     // fragments a tile
+constexpr int kPeakTile = 1024;           // peaks a tile of bounds
 constexpr unsigned kFull = 0xffffffffu;
 
 enum TolKind { kPpm = 0, kPct = 1, kDa = 2 };
@@ -120,11 +130,12 @@ stage1_counts_kernel(const float* __restrict__ lad,    // [P_pad, S, L]
                      int* __restrict__ out,            // [R, W + 2]
                      int R, int P_pad, int S, int L, int Lc, int B, int Pk,
                      int W, int Z, int kind, float tlo, float thi) {
-    const int Pk4 = (Pk + 3) >> 2;
+    // quads a plane of a peak tile holds (the last tile may use fewer)
+    const int Tq = (min(Pk, kPeakTile) + 3) >> 2;
     extern __shared__ float4 smem4[];
-    float4* lo4 = smem4;                               // [Z, Pk4]
-    float4* hi4 = lo4 + Z * Pk4;                       // [Z, Pk4]
-    float* buf = (float*)(hi4 + Z * Pk4);              // [2, kTile]
+    float4* lo4 = smem4;                               // [Z, Tq]
+    float4* hi4 = lo4 + Z * Tq;                        // [Z, Tq]
+    float* buf = (float*)(hi4 + Z * Tq);               // [2, kTile]
     int* cand = (int*)(buf + 2 * kTile);               // [W]
     __shared__ int red_m[kWarps];
     __shared__ int red_n[kWarps];
@@ -146,89 +157,97 @@ stage1_counts_kernel(const float* __restrict__ lad,    // [P_pad, S, L]
     const int ntiles = (nfrag + kTile - 1) / kTile;
     const float* lad0 = lad + (size_t)(p0 + c_lo) * S * L;
 
-    if (ntiles > 0) stage_tile(buf, lad0, 0, nfrag, Lc, L);
-
-    const float* pk = peaks + (size_t)spec * Pk;
-    float* lo_f = (float*)lo4;
-    float* hi_f = (float*)hi4;
-    const float qnan = __int_as_float(0x7fc00000);
-    for (int j = threadIdx.x; j < zact * Pk4 * 4; j += kThreads) {
-        const int zi = j / (Pk4 * 4);
-        const int k = j - zi * Pk4 * 4;
-        float lo = qnan;
-        float hi = qnan;
-        if (k < Pk) {
-            const float c = __fmul_rn(pk[k], (float)(zi + 1));
-            lo = bound(kind, c, tlo);
-            hi = bound(kind, c, thi);
-        }
-        lo_f[j] = lo;
-        hi_f[j] = hi;
-    }
     for (int w = threadIdx.x; w < W; w += kThreads) cand[w] = 0;
+    const int ptiles = ntiles > 0 ? (Pk + kPeakTile - 1) / kPeakTile : 0;
+    for (int pt = 0; pt < ptiles; ++pt) {
+        stage_tile(buf, lad0, 0, nfrag, Lc, L);
 
-    for (int t = 0; t < ntiles; ++t) {
-        if (t + 1 < ntiles) {
-            stage_tile(buf + ((t + 1) & 1) * kTile, lad0, t + 1, nfrag, Lc, L);
-            cp_async_wait<1>();
-        } else {
-            cp_async_wait<0>();
+        // this peak tile's bounds, NaN past its last peak
+        const int pb = pt * kPeakTile;
+        const int npk = min(Pk - pb, kPeakTile);
+        const int Pk4 = (npk + 3) >> 2;
+        const float* pk = peaks + (size_t)spec * Pk + pb;
+        float* lo_f = (float*)lo4;
+        float* hi_f = (float*)hi4;
+        const float qnan = __int_as_float(0x7fc00000);
+        for (int j = threadIdx.x; j < zact * Pk4 * 4; j += kThreads) {
+            const int zi = j / (Pk4 * 4);
+            const int k = j - zi * Pk4 * 4;
+            float lo = qnan;
+            float hi = qnan;
+            if (k < npk) {
+                const float c = __fmul_rn(pk[k], (float)(zi + 1));
+                lo = bound(kind, c, tlo);
+                hi = bound(kind, c, thi);
+            }
+            lo_f[zi * Tq * 4 + k] = lo;
+            hi_f[zi * Tq * 4 + k] = hi;
         }
-        __syncthreads();  // tile t (and the bounds) visible to every thread
-        const int j0 = t * kTile + threadIdx.x * kFR;
-        if (j0 < nfrag) {
-            const float4* tb = reinterpret_cast<const float4*>(
-                buf + (t & 1) * kTile + threadIdx.x * kFR);
-            float x[kFR];
-            float cnt[kFR];
-#pragma unroll
-            for (int i = 0; i < kFR; i += 4) {
-                const float4 v = tb[i / 4];
-                x[i] = v.x;
-                x[i + 1] = v.y;
-                x[i + 2] = v.z;
-                x[i + 3] = v.w;
+
+        for (int t = 0; t < ntiles; ++t) {
+            if (t + 1 < ntiles) {
+                stage_tile(buf + ((t + 1) & 1) * kTile, lad0, t + 1, nfrag,
+                           Lc, L);
+                cp_async_wait<1>();
+            } else {
+                cp_async_wait<0>();
             }
+            __syncthreads();  // tile t (and the bounds) visible to all
+            const int j0 = t * kTile + threadIdx.x * kFR;
+            if (j0 < nfrag) {
+                const float4* tb = reinterpret_cast<const float4*>(
+                    buf + (t & 1) * kTile + threadIdx.x * kFR);
+                float x[kFR];
+                float cnt[kFR];
 #pragma unroll
-            for (int i = 0; i < kFR; ++i) {
-                // past the row's last fragment: a slot that matches nothing
-                if (j0 + i >= nfrag) x[i] = -__int_as_float(0x7f800000);
-                cnt[i] = 0.0f;
-            }
-            for (int zi = 0; zi < zact; ++zi) {
-                const float4* lz = lo4 + zi * Pk4;
-                const float4* hz = hi4 + zi * Pk4;
-                for (int q = 0; q < Pk4; ++q) {
-                    const float4 a = lz[q];
-                    const float4 b = hz[q];
+                for (int i = 0; i < kFR; i += 4) {
+                    const float4 v = tb[i / 4];
+                    x[i] = v.x;
+                    x[i + 1] = v.y;
+                    x[i + 2] = v.z;
+                    x[i + 3] = v.w;
+                }
 #pragma unroll
-                    for (int i = 0; i < kFR; ++i) {
-                        float c = match(cnt[i], x[i], a.x, b.x);
-                        c = match(c, x[i], a.y, b.y);
-                        c = match(c, x[i], a.z, b.z);
-                        cnt[i] = match(c, x[i], a.w, b.w);
+                for (int i = 0; i < kFR; ++i) {
+                    // past the row's last fragment: a slot matching nothing
+                    if (j0 + i >= nfrag) x[i] = -__int_as_float(0x7f800000);
+                    cnt[i] = 0.0f;
+                }
+                for (int zi = 0; zi < zact; ++zi) {
+                    const float4* lz = lo4 + zi * Tq;
+                    const float4* hz = hi4 + zi * Tq;
+                    for (int q = 0; q < Pk4; ++q) {
+                        const float4 a = lz[q];
+                        const float4 b = hz[q];
+#pragma unroll
+                        for (int i = 0; i < kFR; ++i) {
+                            float c = match(cnt[i], x[i], a.x, b.x);
+                            c = match(c, x[i], a.y, b.y);
+                            c = match(c, x[i], a.z, b.z);
+                            cnt[i] = match(c, x[i], a.w, b.w);
+                        }
                     }
                 }
-            }
-            // runs of one candidate: fragments [c SLc, (c + 1) SLc)
-            int c = j0 / SLc;
-            int next = (c + 1) * SLc;
-            int run = 0;
+                // runs of one candidate: fragments [c SLc, (c + 1) SLc)
+                int c = j0 / SLc;
+                int next = (c + 1) * SLc;
+                int run = 0;
 #pragma unroll
-            for (int i = 0; i < kFR; ++i) {
-                if (j0 + i < nfrag) {
-                    if (j0 + i >= next) {
-                        if (run != 0) atomicAdd(&cand[c_lo + c], run);
-                        run = 0;
-                        ++c;
-                        next += SLc;
+                for (int i = 0; i < kFR; ++i) {
+                    if (j0 + i < nfrag) {
+                        if (j0 + i >= next) {
+                            if (run != 0) atomicAdd(&cand[c_lo + c], run);
+                            run = 0;
+                            ++c;
+                            next += SLc;
+                        }
+                        run += (int)cnt[i];
                     }
-                    run += (int)cnt[i];
                 }
+                if (run != 0) atomicAdd(&cand[c_lo + c], run);
             }
-            if (run != 0) atomicAdd(&cand[c_lo + c], run);
+            __syncthreads();  // buffer t & 1 (and the bounds) free again
         }
-        __syncthreads();  // buffer t & 1 free for tile t + 2
     }
     __syncthreads();
 
@@ -266,10 +285,12 @@ stage1_counts_kernel(const float* __restrict__ lad,    // [P_pad, S, L]
 
 extern "C" {
 
-// Dynamic shared memory the kernel needs for these shapes, in bytes.
+// Dynamic shared memory the kernel needs for these shapes, in bytes: one
+// peak tile's bounds (Pk counts up to kPeakTile peaks only), the two
+// fragment buffers and the W candidate counts.
 long long stage1_counts_smem_bytes(int W, int Pk, int Z) {
-    const long long Pk4 = (Pk + 3) / 4;
-    return 32LL * Z * Pk4 + 8LL * kTile + 4LL * W;
+    const long long Tq = ((Pk < kPeakTile ? Pk : kPeakTile) + 3) / 4;
+    return 32LL * Z * Tq + 8LL * kTile + 4LL * W;
 }
 
 // Launches the kernel on `stream`; returns cudaGetLastError() after the

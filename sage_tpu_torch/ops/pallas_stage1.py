@@ -24,6 +24,21 @@ launches = 0
 _TOL_KIND = {"ppm": 0, "pct": 1, "da": 2}
 # elements of the [rows, S, W, Lc, Pk] compare grid per plain-version chunk
 _PLAIN_CHUNK = 1 << 24
+# The kernel's tiles, mirrored from csrc/stage1_counts.cu: fragments a
+# fragment tile, and peaks a tile of bounds
+_TILE = 256 * 8
+_PEAK_TILE = 1024
+_SMEM_MAX = 227 * 1024
+
+
+def stage1_counts_smem_bytes(W: int, Pk: int, Z: int) -> int:
+    """Dynamic shared memory the kernel needs, in bytes (the mirror of
+    ``csrc/stage1_counts.cu:stage1_counts_smem_bytes``): one peak tile's
+    Z planes of low and high bounds (a tile holds up to 1024 peaks, so
+    past that Pk adds nothing), the two fragment buffers and the W
+    candidate counts."""
+    tq = (min(Pk, _PEAK_TILE) + 3) // 4
+    return 32 * Z * tq + 8 * _TILE + 4 * W
 
 
 def _bind():
@@ -76,13 +91,13 @@ def stage1_counts(lad_index, peaks, ints, *, W: int, Lc: int, Z: int, tol):
     for ok, msg in checks:
         if not ok:
             raise ValueError(f"stage1_counts: {msg}")
-    lib = _bind()
-    smem = int(lib.stage1_counts_smem_bytes(W, Pk, Z))
-    if smem > 227 * 1024:
+    smem = stage1_counts_smem_bytes(W, Pk, Z)
+    if smem > _SMEM_MAX:
         raise ValueError(
-            f"stage1_counts: {smem} B of shared memory (W={W}, Pk={Pk}, "
-            f"Z={Z}) exceeds the 227 KB a block can use"
+            f"stage1_counts: {smem} B of shared memory (W={W}, Z={Z}) "
+            f"exceeds the 227 KB a block can use"
         )
+    lib = _bind()
     out = torch.empty((R, W + 2), dtype=torch.int32, device=lad_index.device)
     with torch.cuda.device(lad_index.device):
         stream = torch.cuda.current_stream().cuda_stream

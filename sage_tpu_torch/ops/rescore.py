@@ -3,17 +3,20 @@ PyTorch version.
 
 Counterpart of ``sage_tpu/ops/search.py:285 rescore_candidate``, which
 XLA fuses into the jitted stage-2 programs (no Pallas kernel). For each
-item (a candidate peptide's full fragment ladders against its spectrum's
-peaks) and each (series, ion, fragment charge) slot: the most intense
-in-window peak (ties to the greater mass), then the matched counts per
-terminus, the strictly sequential f32 intensity and ppm sums in the
-fragments-iterator order, and the longest-run automata
+live item (a candidate peptide's full fragment ladders against its
+spectrum's peaks) and each (series, ion, fragment charge) slot: the most
+intense in-window peak (ties to the greater mass), then the matched
+counts per terminus, the strictly sequential f32 intensity and ppm sums
+in the fragments-iterator order, and the longest-run automata
 (scoring.rs:675-793).
 
-A CUDA tensor goes to the kernel (``csrc/rescore.cu``), a CPU tensor to
-the plain version. ``launches`` counts kernel launches. The module also
-holds the f32 helpers that ``ops/search.py`` imports from it:
-``_fdiv``, ``tol_bounds_static`` and ``_SERIES_NTERM``.
+:func:`rescore_indexed` reads the ladder table, the items' peptides and
+their rows' peaks by index; :func:`rescore_candidate` is its thin form
+over an explicit ladder grid. A CUDA tensor goes to the kernel
+(``csrc/rescore.cu``), a CPU tensor to the plain version. ``launches``
+counts kernel launches. The module also holds the f32 helpers that
+``ops/search.py`` imports from it: ``_fdiv``, ``tol_bounds_static`` and
+``_SERIES_NTERM``.
 """
 
 from __future__ import annotations
@@ -33,6 +36,10 @@ _RESCORE_CHUNK = 1 << 26
 
 _SERIES_NTERM = {"a": True, "b": True, "c": True,
                  "x": False, "y": False, "z": False}
+
+# warps a block of the kernel (csrc/rescore.cu's kWarps)
+_WARPS = 8
+_SMEM_MAX = 227 * 1024
 
 
 def _fdiv(x: torch.Tensor, s) -> torch.Tensor:
@@ -56,89 +63,142 @@ def tol_bounds_static(kind: str, lo: float, hi: float, center):
     return center + lo, center + hi
 
 
+def rescore_smem_bytes(S: int, L: int) -> int:
+    """Dynamic shared memory a block of the kernel needs, in bytes (the
+    mirror of ``csrc/rescore.cu:rescore_smem_bytes``): a 16-bit slot index
+    a ladder slot for each of its 8 warps. Only the ladder's S x L enters:
+    no peak count and no item count bounds it."""
+    return _WARPS * ((2 * S * L + 15) // 16 * 16)
+
+
 def _bind():
     from ._cuda_build import load
 
     lib = load("rescore")
-    fn = lib.rescore_candidate
+    fn = lib.rescore_indexed
     if fn.argtypes is None:
         c_int, c_ptr = ctypes.c_int, ctypes.c_void_p
         fn.argtypes = (
-            [c_ptr] * 4 + [c_int] * 8 + [ctypes.c_float] * 2 + [c_ptr] * 8
+            [c_ptr] * 7 + [c_int] * 10 + [ctypes.c_float] * 2 + [c_ptr] * 8
         )
         fn.restype = c_int
-        lib.rescore_smem_bytes.argtypes = [c_int] * 5
+        lib.rescore_smem_bytes.argtypes = [c_int] * 2
         lib.rescore_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 
-def rescore_candidate(f, pkm, pki, maxz, *, series, frag_tol, Z):
+def rescore_indexed(lad, pep, spec, pkm, pki, maxz, live=None, *, series,
+                    frag_tol, Z):
     """The full score_candidate computation (scoring.rs:675-767) for a
-    grid of candidates; see :func:`rescore_candidate_plain` for the
-    arguments and outputs. A CUDA tensor launches ``csrc/rescore.cu``
+    grid of items read by index; see :func:`rescore_indexed_plain` for
+    the arguments and outputs. A CUDA tensor launches ``csrc/rescore.cu``
     (nothing when ``n * k == 0``), a CPU tensor takes the plain version,
-    any other device raises."""
+    any other device raises.
+
+    Precondition, not checked here (that would need a device
+    synchronise; the tests check it at every caller): every peak row that
+    a live item reads ascends in mass, holds no NaN mass and has its
+    ``+inf`` pads last, as ``spectrum/processor.py`` sorts the peaks and
+    ``Scorer._pad_peaks`` pads them. The kernel finds each slot's
+    qualifying peaks by binary search over the row."""
     global launches
-    if f.device.type == "cpu":
-        return rescore_candidate_plain(f, pkm, pki, maxz, series=series,
-                                       frag_tol=frag_tol, Z=Z)
-    if f.device.type != "cuda":
-        raise ValueError(f"rescore_candidate: unsupported device {f.device}")
+    if lad.device.type == "cpu":
+        return rescore_indexed_plain(lad, pep, spec, pkm, pki, maxz, live,
+                                     series=series, frag_tol=frag_tol, Z=Z)
+    if lad.device.type != "cuda":
+        raise ValueError(f"rescore_indexed: unsupported device {lad.device}")
     kind, tlo, thi = frag_tol
+    ts = (lad, pep, spec, pkm, pki, maxz) + (() if live is None else (live,))
     checks = (
-        (f.dim() == 4 and pkm.dim() == 2 and pki.dim() == 2
-         and maxz.dim() == 2, "f must be [n, k, S, L], pkm / pki [n, Pk], "
-         "maxz [n, k]"),
-        (f.dtype == torch.float32 and pkm.dtype == torch.float32
-         and pki.dtype == torch.float32 and maxz.dtype == torch.int32,
-         "dtypes must be f32, f32, f32, i32"),
-        (all(t.device == f.device for t in (pkm, pki, maxz)),
+        (lad.dim() == 3 and pep.dim() == 2 and spec.dim() == 1
+         and pkm.dim() == 2 and pki.dim() == 2 and maxz.dim() == 2
+         and (live is None or live.dim() == 1),
+         "lad must be [P, S, L], pep / maxz [n, k], spec / live [n], "
+         "pkm / pki [B, Pk]"),
+        (lad.dtype == pkm.dtype == pki.dtype == torch.float32
+         and all(t.dtype == torch.int32
+                 for t in (pep, spec, maxz) + ts[6:]),
+         "dtypes must be f32 (lad, pkm, pki) and i32 (pep, spec, maxz, "
+         "live)"),
+        (all(t.device == lad.device for t in ts),
          "tensors must share one device"),
-        (all(t.is_contiguous() for t in (f, pkm, pki, maxz)),
-         "tensors must be contiguous"),
+        (all(t.is_contiguous() for t in ts), "tensors must be contiguous"),
     )
     for ok, msg in checks:
         if not ok:
-            raise ValueError(f"rescore_candidate: {msg}")
-    n, k, S, L = f.shape
-    Pk = pkm.shape[1]
+            raise ValueError(f"rescore_indexed: {msg}")
+    P, S, L = lad.shape
+    n, k = pep.shape
+    B, Pk = pkm.shape
     checks = (
-        (pkm.shape == pki.shape and pkm.shape[0] == n
-         and tuple(maxz.shape) == (n, k),
-         f"shapes f {tuple(f.shape)}, pkm {tuple(pkm.shape)}, pki "
-         f"{tuple(pki.shape)}, maxz {tuple(maxz.shape)} disagree"),
+        (pkm.shape == pki.shape and tuple(maxz.shape) == (n, k)
+         and spec.shape[0] == n and (live is None or live.shape[0] == n),
+         f"shapes pep {tuple(pep.shape)}, spec {tuple(spec.shape)}, maxz "
+         f"{tuple(maxz.shape)}, pkm {tuple(pkm.shape)}, pki "
+         f"{tuple(pki.shape)} disagree"),
         (len(series) == S and 1 <= S <= 32, f"series {series} for S={S}"),
-        (L >= 1 and Pk >= 1 and Z >= 1, f"bad shapes L={L} Pk={Pk} Z={Z}"),
+        (L >= 1 and Z >= 1 and S * L <= 65536,
+         f"bad shapes S={S} L={L} Z={Z}"),
+        (n * k == 0 or min(P, B, Pk) >= 1,
+         f"empty tables P={P} B={B} Pk={Pk}"),
         (kind in _TOL_KIND, f"tolerance kind {kind!r}"),
     )
     for ok, msg in checks:
         if not ok:
-            raise ValueError(f"rescore_candidate: {msg}")
-    dev = f.device
-    outs = [torch.empty((n, k), dtype=dt, device=dev)
+            raise ValueError(f"rescore_indexed: {msg}")
+    outs = [torch.empty((n, k), dtype=dt, device=lad.device)
             for dt in (torch.int32, torch.int32, torch.float32, torch.float32,
                        torch.float32, torch.int32, torch.int32)]
     if n * k == 0:
         return tuple(outs)
-    lib = _bind()
-    smem = int(lib.rescore_smem_bytes(k, S, L, Pk, Z))
-    if smem > 227 * 1024:
+    smem = rescore_smem_bytes(S, L)
+    if smem > _SMEM_MAX:
         raise ValueError(
-            f"rescore_candidate: {smem} B of shared memory (S={S}, L={L}, "
-            f"Pk={Pk}, Z={Z}) exceeds the 227 KB a block can use")
+            f"rescore_indexed: {smem} B of shared memory (S={S}, L={L}) "
+            f"exceeds the 227 KB a block can use")
+    lib = _bind()
     nterm = sum(1 << i for i, s in enumerate(series) if _SERIES_NTERM[s])
-    with torch.cuda.device(dev):
+    with torch.cuda.device(lad.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.rescore_candidate(
-            f.data_ptr(), pkm.data_ptr(), pki.data_ptr(), maxz.data_ptr(),
-            n, k, S, L, Pk, Z, nterm, _TOL_KIND[kind],
+        rc = lib.rescore_indexed(
+            lad.data_ptr(), pep.data_ptr(), spec.data_ptr(), pkm.data_ptr(),
+            pki.data_ptr(), maxz.data_ptr(),
+            None if live is None else live.data_ptr(),
+            n, k, P, B, S, L, Pk, Z, nterm, _TOL_KIND[kind],
             float(np.float32(tlo)), float(np.float32(thi)),
             *(o.data_ptr() for o in outs), stream,
         )
     if rc != 0:
-        raise RuntimeError(f"rescore_candidate launch failed: CUDA error {rc}")
+        raise RuntimeError(f"rescore_indexed launch failed: CUDA error {rc}")
     launches += 1
     return tuple(outs)
+
+
+def _dense_form(f):
+    """An explicit ladder grid ``f`` [n, k, S, L] as the indexed form's
+    table and indices: lad [n * k, S, L], pep = arange [n, k] and
+    spec = arange [n]."""
+    n, k, S, L = f.shape
+    dev = f.device
+    return (f.contiguous().reshape(n * k, S, L),
+            torch.arange(n * k, dtype=torch.int32, device=dev).reshape(n, k),
+            torch.arange(n, dtype=torch.int32, device=dev))
+
+
+def rescore_candidate(f, pkm, pki, maxz, *, series, frag_tol, Z):
+    """:func:`rescore_indexed` over an explicit ladder grid ``f``
+    [n, k, S, L] against the peaks ``pkm`` / ``pki`` [n, Pk] of each
+    row, every item live."""
+    lad, pep, spec = _dense_form(f)
+    return rescore_indexed(lad, pep, spec, pkm, pki, maxz, None,
+                           series=series, frag_tol=frag_tol, Z=Z)
+
+
+def rescore_candidate_plain(f, pkm, pki, maxz, *, series, frag_tol, Z):
+    """The plain version of :func:`rescore_candidate`."""
+    lad, pep, spec = _dense_form(f)
+    return rescore_indexed_plain(lad, pep, spec, pkm, pki, maxz, None,
+                                 series=series, frag_tol=frag_tol, Z=Z)
 
 
 def _rescore_match(f, pkm, pki, maxz, frag_tol, Z):
@@ -173,22 +233,34 @@ def _rescore_match(f, pkm, pki, maxz, frag_tol, Z):
             torch.stack(best_m, -1))
 
 
-def rescore_candidate_plain(f, pkm, pki, maxz, *, series, frag_tol, Z):
+def rescore_indexed_plain(lad, pep, spec, pkm, pki, maxz, live=None, *,
+                          series, frag_tol, Z):
     """The full score_candidate computation (scoring.rs:675-767) for a
-    grid of candidates: per-(fragment, charge) most-intense-peak match,
-    strictly sequential f32 intensity/ppm accumulation in the reference's
-    fragments-iterator order (series, ion, charge), matched counts and
-    longest-run automata.
+    grid of items read by index: per-(fragment, charge) most-intense-peak
+    match, strictly sequential f32 intensity/ppm accumulation in the
+    reference's fragments-iterator order (series, ion, charge), matched
+    counts and longest-run automata.
 
-    f: [n, k, S, L] neutral ladders (invalid slots -inf); pkm/pki: [n, Pk]
-    peak masses/intensities of each row's spectrum; maxz: [n, k] i32
-    exclusive fragment-charge bounds; frag_tol: (kind, lo, hi). Returns
-    (mb, my, summed_b, summed_y, ppm_sum, longest_b, longest_y), each
-    [n, k]. The [n, k, S, L, Pk] compare grid is built a chunk of rows at
-    a time."""
-    n, k, n_series, L = f.shape
-    Pk = pkm.shape[1]
-    dev = f.device
+    lad: [P, S, L] neutral ladders (invalid slots -inf); pep: [n, k] i32
+    item (r, j)'s row of ``lad``; spec: [n] i32 row r's row of the peaks;
+    pkm/pki: [B, Pk] peak masses/intensities; maxz: [n, k] i32 exclusive
+    fragment-charge bounds; live: [n] i32, items [0, live[r]) of row r
+    are live, or None (all live); frag_tol: (kind, lo, hi). An index out
+    of its table's range reads the nearest row, as a clamped gather does.
+    Returns (mb, my, summed_b, summed_y, ppm_sum, longest_b, longest_y),
+    each [n, k], 0 at the dead items. The [n, k, S, L, Pk] compare grid
+    is built a chunk of rows at a time."""
+    n, k = pep.shape
+    P, n_series, L = lad.shape
+    B, Pk = pkm.shape
+    dev = lad.device
+    if n * k == 0:
+        return tuple(
+            torch.zeros((n, k), dtype=dt, device=dev)
+            for dt in (torch.int32, torch.int32, torch.float32, torch.float32,
+                       torch.float32, torch.int32, torch.int32))
+    f = lad[pep.long().clamp(0, P - 1)]  # [n, k, S, L]
+    rows = spec.long().clamp(0, B - 1)
     is_nterm = torch.tensor([_SERIES_NTERM[s] for s in series],
                             dtype=torch.bool, device=dev)
     matched = torch.empty((n, k, n_series, L, Z), dtype=torch.bool,
@@ -200,7 +272,7 @@ def rescore_candidate_plain(f, pkm, pki, maxz, *, series, frag_tol, Z):
     for a in range(0, n, step):
         b = min(a + step, n)
         matched[a:b], pk_i[a:b], pk_m[a:b] = _rescore_match(
-            f[a:b], pkm[a:b], pki[a:b], maxz[a:b], frag_tol, Z
+            f[a:b], pkm[rows[a:b]], pki[rows[a:b]], maxz[a:b], frag_tol, Z
         )
     mz_c = torch.stack([_fdiv(f, zi + 1) for zi in range(Z)], dim=-1)
 
@@ -247,7 +319,13 @@ def rescore_candidate_plain(f, pkm, pki, maxz, *, series, frag_tol, Z):
             runs.append(longest_run_scan(flags, ion_idx.repeat(len(sel))))
         else:
             runs.append(torch.zeros((n, k), dtype=torch.int32, device=dev))
-    return mb, my, sums[..., 0], sums[..., 1], sums[..., 2], runs[0], runs[1]
+    outs = (mb, my, sums[..., 0], sums[..., 1], sums[..., 2], runs[0],
+            runs[1])
+    if live is None:
+        return outs
+    dead = (torch.arange(k, device=dev)[None, :]
+            >= live.to(dev).long()[:, None])
+    return tuple(o.masked_fill(dead, 0) for o in outs)
 
 
 def longest_run_scan(flags, idx):

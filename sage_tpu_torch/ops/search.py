@@ -72,7 +72,7 @@ from .narrow_banded import NarrowBanded
 from .pallas_stage1 import stage1_counts
 from .rescore import (
     _SERIES_NTERM,
-    rescore_candidate,
+    rescore_indexed,
     tol_bounds_static,
 )
 
@@ -941,8 +941,6 @@ class Scorer:
             # broadcast per spectrum
             cap = torch.clamp(z_s, max=cfg + 1) if cfg is not None else z_s
             c_maxz = torch.clamp(torch.clamp(cap, min=2), 2, Zcap + 1)
-            # dead slots rescore peptide 0, masked out of every consumer
-            pep_i2 = torch.clamp(pep_s, min=0)
             B_pk = peaks_dev.shape[1]
             if B_pk < S_pad:
                 pkm_all = torch.nn.functional.pad(
@@ -954,9 +952,13 @@ class Scorer:
             else:
                 pkm_all = peaks_dev[0][:S_pad]
                 pki_all = peaks_dev[1][:S_pad]
-            f = tables.lad_full[pep_i2.to(torch.int64)]  # [S_pad, K0, S, L]
-            mb, my, sb, sy, pp, lb, ly = rescore_candidate(
-                f, pkm_all, pki_all, c_maxz,
+            # the kernel reads each live slot's ladder row of lad_full and
+            # its spectrum's peak row itself; the dead slots (past cnt_s,
+            # masked out of every consumer below) come back as zeros
+            mb, my, sb, sy, pp, lb, ly = rescore_indexed(
+                tables.lad_full, pep_s,
+                torch.arange(S_pad, dtype=i32, device=dev), pkm_all,
+                pki_all, c_maxz, cnt_s,
                 series=series, frag_tol=frag_tol, Z=Zb,
             )
 
@@ -1955,15 +1957,14 @@ class Scorer:
             "use_int": intens}
 
     def _stage2_rescore(self, peaks_dev, ints, Zb):
-        """``rescore_candidate`` for the items ``ints`` [3, N] (spectrum,
+        """``rescore_indexed`` for the items ``ints`` [3, N] (spectrum,
         peptide, exclusive fragment-charge bound), one candidate each:
         f32 [N, 7] (mb, my, summed_b, summed_y, ppm_sum, longest_b,
-        longest_y): one item a row of ``rescore_candidate`` (k = 1), its
-        spectrum's peaks gathered per item."""
-        spec = ints[0].long()
-        f = self.tables.lad_full[ints[1].long()][:, None]  # [N, 1, S, L]
-        mb, my, sb, sy, pp, lb, ly = rescore_candidate(
-            f, peaks_dev[0][spec], peaks_dev[1][spec], ints[2][:, None],
+        longest_y): one item a row (k = 1), reading its ladder row and its
+        spectrum's peak row by index."""
+        mb, my, sb, sy, pp, lb, ly = rescore_indexed(
+            self.tables.lad_full, ints[1][:, None], ints[0], peaks_dev[0],
+            peaks_dev[1], ints[2][:, None],
             series=self.series, frag_tol=_tol_tuple(self.params.fragment_tol),
             Z=Zb,
         )

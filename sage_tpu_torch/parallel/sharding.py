@@ -58,7 +58,7 @@ from ..ops.search import (
     _DeviceTables,
     _tol_tuple,
     _topk_layout,
-    rescore_candidate,
+    rescore_indexed,
 )
 
 # the widest candidate tile of one stage-1 launch in the whole-table
@@ -541,10 +541,10 @@ class ShardedSearch:
             si = torch.from_numpy(h["si"][sl]).to(device)
             maxz = torch.from_numpy(h["maxz"][sl]).to(device)
             peaks = self._peaks_on(h, device)
-            spec = si[rows].long()
-            feats = rescore_candidate(
-                tab.lad_full[(gpep[rows, ks] - base).long()][:, None],
-                peaks[0][spec], peaks[1][spec], maxz[rows][:, None],
+            feats = rescore_indexed(
+                tab.lad_full, (gpep[rows, ks] - base).to(torch.int32)[:, None],
+                si[rows].to(torch.int32), peaks[0], peaks[1],
+                maxz[rows].to(torch.int32)[:, None],
                 series=self.series, frag_tol=self._tol, Z=h["Zb"],
             )
             out[:, rows, ks] = torch.stack(

@@ -1,9 +1,9 @@
 """The port on a CUDA device: the stage-1, row-sort, cluster-sort and
-rescore kernels against their plain versions on the card, and the whole
-narrow, banded,
-chimeric and open paths (fused and two-dispatch), the multi-device grid
-(four shards on the one card) and the Runner on the card against the
-CPU.
+rescore kernels against their plain versions on the card (at crafted
+edges, peaks on their IEEE bounds, dead items and 12,000-peak spectra
+among them), and the whole narrow, banded, chimeric and open paths
+(fused and two-dispatch), the multi-device grid (four shards on the one
+card) and the Runner on the card against the CPU.
 Every test here needs a card; where there is none they skip.
 
 Run on a machine with a card (the variable keeps conftest.py from
@@ -26,7 +26,8 @@ from sage_tpu_torch.ops import pallas_sort, pallas_stage1
 from sage_tpu_torch.ops import rescore as trescore
 from sage_tpu_torch.ops.search import Scorer, SearchParams
 
-from _rescore_cases import CARD_SHAPES, RANDOM, crafted_cases, shape_case
+from _rescore_cases import (CARD_SHAPES, RANDOM, indexed_case, kernel_cases,
+                            large_peak_arrays, shape_case)
 
 pytestmark = pytest.mark.gpu
 
@@ -134,7 +135,7 @@ def test_narrow_path_card_matches_cpu(cuda, small):
 
 
 # the CPU tests' shapes and the card's own (one item a row, several warps
-# of items a row, a block past 48 KB of shared memory)
+# of items a row, the widest ladder)
 _RESCORE_RANDOM = RANDOM + list(CARD_SHAPES.values())
 
 
@@ -157,11 +158,12 @@ def _rescore_on_card(case, cuda):
     return got
 
 
-@pytest.mark.parametrize("name", sorted(crafted_cases()))
+@pytest.mark.parametrize("name", sorted(kernel_cases()))
 def test_rescore_kernel_crafted(cuda, name):
     """The rescore kernel against its plain version on the card at the
-    edge cases, bit for bit."""
-    _rescore_on_card(crafted_cases()[name], cuda)
+    edge cases whose rows ascend in mass (its precondition), bit for
+    bit."""
+    _rescore_on_card(kernel_cases()[name], cuda)
 
 
 @pytest.mark.parametrize(
@@ -518,3 +520,143 @@ def test_runner_grid_card_matches_cpu(cuda, tmp_path, monkeypatch):
         outs[dev] = (out / "results.sage.tsv").read_bytes()
     assert outs["cuda"] == outs["cpu"]
     assert outs["cpu"].count(b"\n") > 64
+
+
+def _kernel_vs_plain_stage1(lad, peaks, ints, **kw):
+    before = pallas_stage1.launches
+    got = pallas_stage1.stage1_counts(lad, peaks, ints, **kw)
+    assert pallas_stage1.launches == before + 1
+    want = pallas_stage1.stage1_counts_plain(lad, peaks, ints, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    return got
+
+
+@pytest.mark.parametrize("tol", [("ppm", -10.0, 10.0), ("ppm", -20.0, 20.0),
+                                 ("pct", -0.001, 0.002)])
+@pytest.mark.parametrize("Z", [1, 3])
+def test_stage1_kernel_on_ieee_bounds(cuda, tol, Z):
+    """Fragments exactly on their peaks' IEEE bounds and one ulp either
+    side (tests/test_torch_stage1.py's segment): the kernel equals its
+    plain version, which the CPU test holds to a numpy IEEE count."""
+    from test_torch_stage1 import _on_bound_segment
+
+    lad, peaks, ints, W, Lc = _on_bound_segment(tol, Z)
+    got = _kernel_vs_plain_stage1(
+        torch.from_numpy(lad).to(cuda), torch.from_numpy(peaks).to(cuda),
+        torch.from_numpy(ints).to(cuda), W=W, Lc=Lc, Z=Z, tol=tol)
+    assert int(got[:, :W].max()) == 4
+
+
+def _rescore_indexed_on_card(c, cuda):
+    args = [torch.from_numpy(np.asarray(c[k])).to(cuda)
+            for k in ("lad", "pep", "spec", "pkm", "pki", "maxz")]
+    live = None if c["live"] is None else torch.from_numpy(c["live"]).to(cuda)
+    kw = dict(series=c["series"], frag_tol=c["frag_tol"], Z=c["Z"])
+    before = trescore.launches
+    got = trescore.rescore_indexed(*args, live, **kw)
+    assert trescore.launches == before + 1
+    want = trescore.rescore_indexed_plain(*args, live, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert torch.equal(g, w)
+    return got
+
+
+@pytest.mark.parametrize("seed,shape", [(1, RANDOM[1]), (2, RANDOM[4]),
+                                        (3, RANDOM[7]),
+                                        (4, CARD_SHAPES["k1"]),
+                                        (5, CARD_SHAPES["warps"]),
+                                        (6, CARD_SHAPES["smem_48k"])])
+def test_rescore_indexed_kernel_dead_items(cuda, seed, shape):
+    """The indexed entry point on the card (a shuffled ladder table,
+    shuffled peak rows, rows of dead items): all seven outputs bit-equal
+    to the plain version, 0 at the dead items."""
+    c = indexed_case(seed, shape)
+    got = _rescore_indexed_on_card(c, cuda)
+    dead = torch.from_numpy(np.arange(c["pep"].shape[1])[None, :]
+                            >= c["live"][:, None]).to(cuda)
+    assert bool(dead.any()) and not any(bool(o[dead].any()) for o in got)
+
+
+def test_kernel_sizing_mirrors(cuda):
+    """The wrappers' sizing formulas equal the kernels' own."""
+    s1 = pallas_stage1._bind()
+    for W, Pk, Z in ((50, 128, 1), (50, 12000, 3), (4096, 1023, 4),
+                     (16384, 2049, 2)):
+        assert s1.stage1_counts_smem_bytes(W, Pk, Z) == \
+            pallas_stage1.stage1_counts_smem_bytes(W, Pk, Z)
+    rs = trescore._bind()
+    for S, L in ((1, 7), (2, 47), (4, 64), (6, 100)):
+        assert rs.rescore_smem_bytes(S, L) == trescore.rescore_smem_bytes(S, L)
+
+
+def test_kernels_at_12000_peaks(cuda, small):
+    """Spectra of 12,000 peaks (max_peaks 12,000): the stage-1 kernel at
+    Z = 3 and the rescore kernel, each against its plain version, where
+    the untiled kernels needed more than a block's shared memory."""
+    from sage_tpu_torch.spectrum.processor import (Precursor, RawSpectrum,
+                                                   SpectrumProcessor)
+
+    db, _ = small
+    proc = SpectrumProcessor(12000, False)
+    spectra = [proc.process(RawSpectrum(
+        ms_level=2, id=f"scan={i}", centroid=True,
+        precursors=[Precursor(mz=a["prec_mz"], charge=a["charge"])],
+        mz=a["mz"], intensity=a["intensity"]))
+        for i, a in enumerate(large_peak_arrays(db, 6, 12000, seed=31))]
+    s = Scorer(db, _params(("ppm", -10.0, 10.0)), device=cuda)
+    masses, intens, Pk = s._pad_peaks(spectra)
+    assert Pk == 12000
+    peaks = torch.from_numpy(masses).to(cuda)
+    rng = np.random.default_rng(12)
+    R, W = 40, 50
+    p0 = rng.integers(0, len(db) - W, R)
+    ints = np.stack([rng.integers(0, 6, R), p0, p0, p0 + W,
+                     np.full(R, 4)]).astype(np.int32)
+    got = _kernel_vs_plain_stage1(
+        s.tables.lad_index, peaks, torch.from_numpy(ints).to(cuda), W=W,
+        Lc=s.tables.L, Z=3, tol=("ppm", -10.0, 10.0))
+    assert int(got[:, :W].max()) > 0
+    n, k = 6, 20
+    c = dict(lad=s.tables.lad_full.cpu().numpy(),
+             pep=rng.integers(0, len(db), (n, k)).astype(np.int32),
+             spec=np.arange(n, dtype=np.int32), pkm=masses, pki=intens,
+             maxz=np.full((n, k), 4, np.int32),
+             live=rng.integers(0, k + 1, n).astype(np.int32),
+             series=s.series, frag_tol=("ppm", -10.0, 10.0), Z=3)
+    got = _rescore_indexed_on_card(c, cuda)
+    assert int(got[0].sum() + got[1].sum()) > 0
+
+
+@pytest.mark.parametrize("fused", ["1", "0"])
+def test_scorer_at_12000_peaks_card_matches_cpu(cuda, small, monkeypatch,
+                                                fused):
+    """The Scorer on spectra of 12,000 peaks (max_peaks 12,000) with
+    fragment charges up to 3, fused and two-dispatch: every FeatureTable
+    column equal to the CPU's, the stage-1 and rescore kernels
+    launched."""
+    import dataclasses
+
+    from sage_tpu_torch.spectrum.processor import (Precursor, RawSpectrum,
+                                                   SpectrumProcessor)
+
+    db, _ = small
+    monkeypatch.setenv("SAGE_TPU_FUSED", fused)
+    proc = SpectrumProcessor(12000, False)
+    spectra = [proc.process(RawSpectrum(
+        ms_level=2, id=f"scan={i}", centroid=True,
+        precursors=[Precursor(mz=a["prec_mz"], charge=a["charge"])],
+        mz=a["mz"], intensity=a["intensity"]))
+        for i, a in enumerate(large_peak_arrays(db, 4, 12000, seed=33))]
+    params = dataclasses.replace(
+        _params(("ppm", -10.0, 10.0)), max_fragment_charge=3,
+        precursor_tol=Tolerance("ppm", -20.0, 20.0))
+    before = (pallas_stage1.launches, trescore.launches)
+    t_gpu = Scorer(db, params, device=cuda).score_table(spectra)
+    assert pallas_stage1.launches > before[0]
+    assert trescore.launches > before[1]
+    t_cpu = Scorer(db, params, device="cpu").score_table(spectra)
+    _assert_same([t_gpu], [t_cpu])

@@ -17,9 +17,10 @@ seconds):
    import. Without pyarrow phase 20 writes TSV and records its parquet
    half as not run.
 1. Device: the card's name and power limit; exits non-zero without CUDA.
-2. Build: the four kernel sources (csrc/stage1_counts.cu,
-   csrc/row_sort.cu, csrc/cluster_sort.cu, csrc/rescore.cu) with nvcc,
-   side by side, printing ptxas's registers / shared-memory / spill
+2. Build: the seven kernel sources (csrc/stage1_counts.cu,
+   csrc/row_sort.cu, csrc/cluster_sort.cu, csrc/rescore.cu,
+   csrc/peak_ranges.cu, csrc/open_entries.cu, csrc/open_count.cu) with
+   nvcc, side by side, printing ptxas's registers / shared-memory / spill
    lines and the build time.
 11. Runner at full size (runs right after the build: its database is the
    one every later phase searches): bench.py's database as a FASTA
@@ -87,14 +88,19 @@ seconds):
 6. Open path at full width: bench.py's open workload (the same database,
    precursor -500/+100 Da, fragment +-10 ppm, 4 batches of 512 spectra
    after one warm-up batch) through ``score_stream``. The sort kernels'
-   counters are set to 0 just before and read just after; every batch
-   must launch the row-sort kernel. Prints the bands, nbcov, the size
+   and the peak-major kernels' counters are set to 0 just before and
+   read just after; every batch must launch the row-sort kernel, and the
+   range search (device-planned batches), the entry gather and the
+   run-count top-K must launch. Prints the bands, nbcov, the size
    classes, F per segment, the device-planned batches and the overflow
    reruns (``fused_reruns``), the wall rate and peak memory, and one
-   batch's profile with named ranges around the range probe, the count
-   core and the sort.
-7. Cluster kernel on the open path: one batch with the one-pass limit
-   lowered to 1024 keys, so that every row goes to the cluster kernel
+   batch's profile with named ranges around the range search, the count
+   core and, inside it, the gather, the sort and the count.
+7. Cluster kernel on the open path: the default run of a device-planned
+   batch (its sort inputs, and the first inputs of the peak-major
+   kernels' wrappers, kept for phases 8 and 27), then one batch with the
+   one-pass limit lowered to 1024 keys, so that every row goes to the
+   cluster kernel
    (one launch a sort); it must launch, and every FeatureTable column
    must equal the default run's.
 8. Sort kernels against plain: each kernel against its plain version and
@@ -122,8 +128,9 @@ seconds):
     > 0 and every FeatureTable column must equal phase 3's fused tables.
     Prints the wall rate and one batch's host phases.
 14. Two-dispatch open: phase 6's 4 x 512 spectra with SAGE_TPU_FUSED=0;
-    the row-sort counter must be > 0 and every column must equal phase
-    6's tables.
+    the row-sort counter and the peak-major kernels' counters (its range
+    planning runs the range search and fetches the ranges) must be > 0
+    and every column must equal phase 6's tables.
 15. Banded narrow stage 1: phase 3's spectra with a +-1.5 Da precursor
     window (W = 4096 on this database) and +-10 ppm fragments, the banded
     stage 1 asked for with SAGE_TPU_NARROW_BANDED=1. After a warm-up
@@ -135,9 +142,11 @@ seconds):
     must take the path its predicate names), and 64 spectra must give
     equal columns on the card and the CPU. Prints W, nbcov, F, the
     largest entry count, the overflow reruns, the runs' spectra/s, peak
-    memory and one batch's profile (binary search, count core, sort,
-    rescore); the sort kernel is checked against its plain version and
-    timed at the batch's sort inputs.
+    memory and one batch's profile (range search, count core with its
+    gather, sort and count, rescore); the range search, entry gather and
+    count counters must be > 0; an untimed rerun keeps the sort inputs
+    (checked against the plain version and timed here) and the peak-major
+    kernels' first inputs (phase 27).
 16. Banded, low-resolution fragments: phase 15 with +-0.5 Da fragments
     (+-1.0 Da if the entry rows stay within 2^15 keys), as ion-trap MS2
     is searched. The cluster kernel must launch on this path, once for
@@ -187,8 +196,10 @@ seconds):
     the cluster kernel (F <= 2^17) or, past that, torch.sort, as on one
     device; F and the sort of each batch printed; the counters set to 0
     just before each grid's batches; every column equal to phase 6's;
-    the row-sort and cluster counters > 0 over the phase; each kernel
-    equal to its plain version on a slice of the grid's rows.
+    the row-sort and cluster counters > 0 over the phase, the peak-major
+    kernels' counters > 0 on every grid (its range planning runs the
+    range search on each model shard's device); each sort kernel equal
+    to its plain version on a slice of the grid's rows.
 10. The ``kernels`` JSON line, the nvidia-smi line, and the final
     ``{"ok": true, ...}`` line. ``launches`` is each kernel's count on
     its main path (phase 3, 6 or 16), ``launches_by_path`` its count on
@@ -197,8 +208,11 @@ seconds):
     (``sharded_narrow``) and 24 (``sharded_runner``); row sort: 6, 14,
     15, 16, 23 (``sharded_open``); cluster sort: 16, 6, 14, 23; phases 15
     and 16 count their banded runs; stage 1 and the rescore also
-    count phase 26's two runs). The cluster kernel's
-    times are phase 16's; phase 7's lowered-limit run adds
+    count phase 26's two runs; the range search, entry gather and count:
+    6, 14, 15, 16, 23). The cluster kernel's
+    times are phase 16's; the peak-major kernels' main path is phase 6,
+    their times phase 27's at phase 7's input, with phases 15's and 16's
+    rows beside them (``by_input``); phase 7's lowered-limit run adds
     ``forced_launches``; the rescore kernel's main path is phase 3, its
     paths 3, 6, 11, 13-17 (15 and 16 banded), 20, 22-24 and 26, its
     times phase 25's at phase 3's input.
@@ -230,6 +244,21 @@ seconds):
     port's run; the stage-1 kernel at the fused run's segments and the
     rescore kernel at both runs' inputs against their plain versions
     (bit-equal) and timed beside their bounds.
+27. Peak-major kernels against plain (runs after phase 25): the range
+    search (open grid or slot form, banded form), the entry gather and
+    the run-count top-K against their plain versions on the card at
+    crafted edges (tests/_peak_cases.py: fragments on the IEEE bounds,
+    NaN and infinite peaks, empty bands and windows, rows past F, both
+    key forms, K 50, 80 and 1024, a top-K buffer that compacts) and at
+    the inputs kept on the main paths (phase 7's device-planned open
+    batch, phases 15's and 16's banded batches): outputs equal (i32). At
+    each kept input timed with CUDA events around calls queued behind a
+    spin kernel (a call's device work can be shorter than its host launch
+    cost, which events around calls not held would time instead; that
+    per-call time is printed too): kernel, plain version, kernel again,
+    beside the card's bound for the same work and, for the range search,
+    torch.searchsorted over the bands' composite keys (band * 2^17 +
+    m/z), timed both ways.
 
 A ``# record:`` line repeats the run's numbers as JSON.
 """
@@ -273,7 +302,16 @@ KERNELS = {
     # programs
     "rescore": ("sage_tpu_torch/csrc/rescore.cu",
                 "sage_tpu/ops/search.py:285"),
+    # no Pallas kernels: the XLA programs of the peak-major searches
+    "peak_ranges": ("sage_tpu_torch/csrc/peak_ranges.cu",
+                    "sage_tpu/ops/open_search.py:112"),
+    "open_entries": ("sage_tpu_torch/csrc/open_entries.cu",
+                     "sage_tpu/ops/open_search.py:423"),
+    "open_count": ("sage_tpu_torch/csrc/open_count.cu",
+                   "sage_tpu/ops/open_search.py:465"),
 }
+# the peak-major searches' kernels (ops/open_search.py's launch counters)
+PEAK_KERNELS = ("peak_ranges", "open_entries", "open_count")
 # The parent commit's whole long-row sort (its 2^15-key block sorts, the
 # flip passes in torch and the bitonic merge kernel), ms a batch,
 # measured by time_long_sort.py on an NVIDIA H100 80GB HBM3 at 700 W:
@@ -398,11 +436,29 @@ def bound_ms(nbytes, ops, ops_per_s):
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
+# The first kernel records of a torch.profiler window can be lost (seen
+# on the card: the banded stage 1's first kernels, launched through
+# ctypes after tens of ms of host work, had no records while later
+# launches did). A window therefore opens with a few short spin kernels
+# and a pause, which its readers leave out by name; that keeps most
+# records, not every one.
+PAD_KERNEL = "spin_kernel"
+
+
+def profile_pad(torch, n=8):
+    for _ in range(n):
+        torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    time.sleep(0.05)
+
+
 def profile_batch(torch, scorer, batch, ranged, kernel_keys, top=8):
     """Where one batch's time goes: host phases of ``score_table`` timed
     with a synchronise after each, then the same batch under
     torch.profiler for the device's busy time, named ranges and the
-    ``top`` host ops by device time. ``ranged``: (module, attribute)
+    ``top`` host ops by device time, then once more with each named
+    range's calls timed by CUDA events (``<name>_event_ms``).
+    ``ranged``: (module, attribute)
     pairs wrapped in named ranges; ``kernel_keys``: label -> substring of
     a kernel's name."""
     sync = torch.cuda.synchronize
@@ -444,6 +500,7 @@ def profile_batch(torch, scorer, batch, ranged, kernel_keys, top=8):
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            profile_pad(torch)
             t0 = time.perf_counter()
             scorer.score_table(batch)
             sync()
@@ -452,6 +509,35 @@ def profile_batch(torch, scorer, batch, ranged, kernel_keys, top=8):
         for m, attr, fn in originals:
             setattr(m, attr, fn)
     ev = prof.key_averages()
+
+    # The same batch once more, each named range's calls timed with CUDA
+    # events on the current stream (start before the call, end after):
+    # the device span of the work each call enqueued (and any wait for
+    # the host inside the call), independent of the profiler's records.
+    spans_ev = {n: 0.0 for n in names}
+    pairs = []
+
+    def in_events(name, fn):
+        def call(*a, **k):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(*a, **k)
+            e1.record()
+            pairs.append((name, e0, e1))
+            return out
+        return call
+
+    for m, attr, fn in originals:
+        setattr(m, attr, in_events(attr, fn))
+    try:
+        scorer.score_table(batch)
+        sync()
+    finally:
+        for m, attr, fn in originals:
+            setattr(m, attr, fn)
+    for name, e0, e1 in pairs:
+        spans_ev[name] += e0.elapsed_time(e1)
 
     def dev_us(e, own=True):
         keys = (("self_device_time_total", "self_cuda_time_total") if own
@@ -462,7 +548,7 @@ def profile_batch(torch, scorer, batch, ranged, kernel_keys, top=8):
     # a host op's entry repeats the time of the kernels it launched, and a
     # named range shows up on the device too.
     on_dev = [e for e in ev if str(e.device_type).endswith("CUDA")
-              and e.key not in names]
+              and e.key not in names and PAD_KERNEL not in e.key]
     busy = sum(dev_us(e) for e in on_dev) / 1e3
     kern = {lab: sum(dev_us(e) for e in on_dev if sub in e.key) / 1e3
             for lab, sub in kernel_keys.items()}
@@ -481,6 +567,7 @@ def profile_batch(torch, scorer, batch, ranged, kernel_keys, top=8):
               **{f"{k}_kernel_device_ms": v for k, v in kern.items()},
               **{f"{n}_device_ms": v for n, v in stages.items()},
               **{f"{n}_device_span_ms": v for n, v in spans.items()},
+              **{f"{n}_event_ms": v for n, v in spans_ev.items()},
               idle_share=(1 - busy / wall) if busy else None)
     if busy:
         log(f"# profile: score_table wall {wall:.2f} ms, device busy "
@@ -488,7 +575,9 @@ def profile_batch(torch, scorer, batch, ranged, kernel_keys, top=8):
             + ", ".join(f"{k} kernel {v:.3f}" for k, v in kern.items())
             + "; ranges (their torch ops' kernels / device span): "
             + ", ".join(f"{n} {v:.2f} / {spans[n]:.2f}"
-                        for n, v in stages.items()))
+                        for n, v in stages.items())
+            + "; CUDA-event spans of a second run: "
+            + ", ".join(f"{n} {v:.3f}" for n, v in spans_ev.items()))
         if top:
             log("# host ops by the device time of the kernels they launched:")
         for e in top:
@@ -533,6 +622,74 @@ def capture_rescore(tsearch, store, key):
     """Until the block ends, keep the first rescore inputs of the
     Scorer's calls under ``store[key]`` (see :func:`keep_first`)."""
     return Recording(tsearch, "rescore_indexed", keep_first(store, key))
+
+
+def reset_peak(topen):
+    """Set the peak-major kernels' launch counters to 0."""
+    for k in topen.launches:
+        topen.launches[k] = 0
+
+
+# profile_batch's kernels: label -> a substring of the kernel's name
+PEAK_KERNEL_KEYS = {"row_sort": "row_sort_kernel",
+                    "cluster_sort": "cluster_sort_kernel",
+                    "rescore": "rescore_kernel",
+                    "peak_ranges": "peak_ranges_",
+                    "open_entries": "open_entries_kernel",
+                    "open_count": "open_count_kernel"}
+
+
+def open_profile_ranges(topen, tsearch):
+    """profile_batch's named ranges on the open path: the range search
+    (either form), the count core's span and, inside it, the entry
+    gather, the sort and the run-count top-K, then the rescore."""
+    return [(topen, "_device_ranges"), (topen, "_device_ranges_flat"),
+            (tsearch, "_device_open_count"), (topen, "open_entries"),
+            (topen, "bitonic_sort_rows"), (topen, "open_count"),
+            (tsearch, "rescore_indexed")]
+
+
+def banded_profile_ranges(tbanded, topen, tsearch):
+    """The same on the banded path: its range search, the count core's
+    span and its three parts, the rescore."""
+    return [(tbanded, "_banded_ranges"), (tbanded, "_open_count_core"),
+            (topen, "open_entries"), (topen, "bitonic_sort_rows"),
+            (topen, "open_count"), (tsearch, "rescore_indexed")]
+
+
+class capture_peak:
+    """Until the block ends, keep in ``store`` the first call's inputs of
+    each of the peak-major kernels' wrappers, as (args, keywords): the
+    first argument (a table, or the sorted rows) by reference, every
+    other tensor cloned."""
+
+    def __init__(self, topen, tbanded, store):
+        targets = [(topen, "_device_ranges", "ranges"),
+                   (topen, "_device_ranges_flat", "ranges_flat"),
+                   (topen, "open_entries", "entries"),
+                   (topen, "open_count", "count")]
+        if tbanded is not None:
+            targets.append((tbanded, "_banded_ranges", "banded_ranges"))
+        self.recs = [Recording(o, a, self.keep(store, key))
+                     for o, a, key in targets]
+
+    @staticmethod
+    def keep(store, key):
+        def keep(out, *a, **k):
+            if key not in store:
+                store[key] = ((a[0],) + tuple(
+                    x.clone() if hasattr(x, "clone") else x for x in a[1:]),
+                    dict(k))
+        return keep
+
+    def __enter__(self):
+        for r in self.recs:
+            r.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        for r in reversed(self.recs):
+            r.__exit__(*exc)
 
 
 def build_kernels(_cuda_build):
@@ -779,10 +936,12 @@ def narrow_phases(torch, tsearch, pallas_stage1, db, spectra, dev, times,
 
 
 def open_phases(torch, tsearch, topen, pallas_sort, db, spectra, dev, times,
-                rescore_in):
+                rescore_in, peak_in):
     """Phases 6-9 (the open search). Returns the record, the sort
     kernels' entries and phase 6's (params, batches, tables); the warm-up
-    batch's rescore inputs go into ``rescore_in["open"]``."""
+    batch's rescore inputs go into ``rescore_in["open"]``, the first
+    inputs of the peak-major kernels' wrappers in phase 7's untimed run
+    of a device-planned batch into ``peak_in["open"]``."""
     params = tsearch.SearchParams(
         precursor_tol=tsearch.Tolerance("da", -500.0, 100.0),
         fragment_tol=tsearch.Tolerance("ppm", -10.0, 10.0),
@@ -839,12 +998,14 @@ def open_phases(torch, tsearch, topen, pallas_sort, db, spectra, dev, times,
         for k in pallas_sort.launches:
             pallas_sort.launches[k] = 0
         trescore.launches = 0
+        reset_peak(topen)
         t0 = time.perf_counter()
         tables = list(scorer.score_stream(batches))
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         launches = dict(pallas_sort.launches)
         r_launches = trescore.launches
+        peak_launches = dict(topen.launches)
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         scorer._fused_dispatch = real_dispatch
         reruns = scorer.fused_reruns - reruns0
@@ -858,8 +1019,8 @@ def open_phases(torch, tsearch, topen, pallas_sort, db, spectra, dev, times,
         log(f"# open main path: {OPEN_BATCHES} x {B} spectra in "
             f"{wall_s:.3f} s wall = {OPEN_BATCHES * B / wall_s:.1f} "
             f"spectra/s; sort launches {launches['row_sort']}, cluster "
-            f"launches {launches['cluster_sort']}, rescore {r_launches}; "
-            f"{n_dev} of "
+            f"launches {launches['cluster_sort']}, rescore {r_launches}, "
+            f"{peak_launches}; {n_dev} of "
             f"{len(per_batch)} dispatches device-planned; fused_reruns "
             f"{reruns} (overflowed batches scored again through the "
             f"two-dispatch path); peak device memory {peak_gib:.2f} GiB")
@@ -867,6 +1028,8 @@ def open_phases(torch, tsearch, topen, pallas_sort, db, spectra, dev, times,
         assert all(n > 0 for n, _p in per_batch), per_batch
         assert launches["row_sort"] == sum(n for n, _p in per_batch)
         assert r_launches > 0, "open: the rescore kernel did not launch"
+        assert n_dev > 0 and all(peak_launches[k] > 0 for k in PEAK_KERNELS), (
+            peak_launches)
         for t, bt in zip(tables, batches):
             assert len(t) > 0.9 * len(bt), (len(t), len(bt))
             assert np.isfinite(t.columns["hyperscore"]).all()
@@ -876,16 +1039,11 @@ def open_phases(torch, tsearch, topen, pallas_sort, db, spectra, dev, times,
             assert np.isfinite(t.columns["delta_mass"]).all()
         log(f"# open main path PSMs: {sum(len(t) for t in tables)}")
         breakdown = profile_batch(
-            torch, scorer, batches[0],
-            [(topen, "_probe"), (tsearch, "_device_open_count"),
-             (topen, "bitonic_sort_rows"), (tsearch, "rescore_indexed")],
-            {"row_sort": "row_sort_kernel",
-             "cluster_sort": "cluster_sort_kernel",
-             "rescore": "rescore_kernel"},
-        )
+            torch, scorer, batches[0], open_profile_ranges(topen, tsearch),
+            PEAK_KERNEL_KEYS)
     out.update(batch=B, batches=OPEN_BATCHES, wall_s=wall_s,
                spectra_per_s=OPEN_BATCHES * B / wall_s,
-               rescore_launches=r_launches,
+               rescore_launches=r_launches, peak_launches=peak_launches,
                sort_launches_per_dispatch=[n for n, _p in per_batch],
                device_planned=n_dev, reruns=reruns, peak_device_gib=peak_gib,
                plans=[p for _n, p in per_batch],
@@ -896,8 +1054,10 @@ def open_phases(torch, tsearch, topen, pallas_sort, db, spectra, dev, times,
         # recorded for phase 8
         b = batches[0]
         captured = []
+        peak_in["open"] = {"searcher": os_}
         with Recording(topen, "bitonic_sort_rows",
-                       lambda out, key, *a, **k: captured.append(key.clone())):
+                       lambda out, key, *a, **k: captured.append(key.clone())
+                       ), capture_peak(topen, None, peak_in["open"]):
             scorer._psm_counter = 1
             t_default = scorer.score_table(b)
         assert scorer.last_plan["device_planned"]
@@ -1690,6 +1850,7 @@ def sharded_phases(torch, mods, db, narrow_fused, open_fused, dev, times):
             return real_sort(key, *a, **k)
 
         totals = {k: 0 for k in pallas_sort.launches}
+        peak_totals = {k: 0 for k in topen.launches}
         # a -500/+100 Da window spans no more than one shard's peptide
         # range at a model axis of 2, where the windowed step's gate would
         # take it: the banded open step is asked for, as sage_tpu's tests
@@ -1701,6 +1862,7 @@ def sharded_phases(torch, mods, db, narrow_fused, open_fused, dev, times):
             for k in pallas_sort.launches:
                 pallas_sort.launches[k] = 0
             trescore.launches = 0
+            reset_peak(topen)
             t0 = time.perf_counter()
             with EnvSet("SAGE_TPU_SHARD_WINDOWED", "0"):
                 topen.bitonic_sort_rows = recording_sort
@@ -1728,11 +1890,16 @@ def sharded_phases(torch, mods, db, narrow_fused, open_fused, dev, times):
             wall = time.perf_counter() - t0
             launches = dict(pallas_sort.launches)
             n_r = trescore.launches
+            peak = dict(topen.launches)
             rec["rescore_launches"] += n_r
             assert n_r > 0, f"grid {shape}: the rescore kernel did not launch"
+            assert all(peak[k] > 0 for k in PEAK_KERNELS), peak
             for k in totals:
                 totals[k] += launches[k]
-            # the host's share: one batch's range planning over the shards
+            for k in peak_totals:
+                peak_totals[k] += peak[k]
+            # one batch's range planning over the shards (the range search
+            # kernel and the fetch of its ranges)
             masses = sc._host._pad_peaks(batches[0])[0]
             t0 = time.perf_counter()
             sc.search.open_ranges(masses)
@@ -1743,14 +1910,15 @@ def sharded_phases(torch, mods, db, narrow_fused, open_fused, dev, times):
                 f"batch builds the shards' fragment index), tables built in "
                 f"{build_s:.2f} s; B x F <= MAX_ELEMENTS, so the banded open "
                 f"step each batch; (F, sort) per batch {per_batch}; launches "
-                f"{launches}, rescore {n_r}; host range planning "
+                f"{launches}, rescore {n_r}, {peak}; range planning "
                 f"{plan_s:.3f} s a batch; all columns equal phase 6's")
             rec["open"][f"{shape[0]}x{shape[1]}"] = dict(
                 wall_s=wall, spectra_per_s=n_spec / wall, build_s=build_s,
                 F=[f for f, _k in per_batch], launches=launches,
-                rescore_launches=n_r,
+                rescore_launches=n_r, peak_launches=peak,
                 plan_s=plan_s)
         rec["sort_launches"] = totals
+        rec["peak_launches"] = peak_totals
         assert totals["row_sort"] > 0 and totals["cluster_sort"] > 0, totals
         for kind, x in sorts.items():
             got = real_sort(x)
@@ -1931,7 +2099,7 @@ class EnvSet:
 
 
 def banded_phase(torch, mods, db, spectra, times, name, frags,
-                 cpu_spectra=0, lowres=False, capture=None):
+                 cpu_spectra=0, lowres=False, capture=None, peak_in=None):
     """Phases 15 and 16: bench.py's spectra with a +-1.5 Da precursor
     window, which puts the batch's widest window at W = 4096, through the
     banded stage 1 (SAGE_TPU_NARROW_BANDED=1). A warm-up batch (phase
@@ -1949,9 +2117,11 @@ def banded_phase(torch, mods, db, spectra, times, name, frags,
     spectra on the card and on the CPU, every column equal. The sort
     kernels are then checked against their plain versions and torch.sort
     and timed at the inputs the batch gave them. The rescore counter is
-    set to 0 with the others and must be > 0 after; ``capture``: (dict,
-    key) that takes the last tolerance's warm-up batch's first rescore
-    inputs."""
+    set to 0 with the others and must be > 0 after, as must the
+    peak-major kernels' (range search, entry gather, run-count top-K);
+    ``capture``: (dict, key) that takes the last tolerance's warm-up
+    batch's first rescore inputs; ``peak_in``: a dict that takes the
+    peak-major kernels' first inputs of the batch's untimed rerun."""
     tsearch, tbanded, topen, pallas_sort, pallas_stage1 = (
         mods["search"], mods["banded"], mods["open"], mods["sort"],
         mods["stage1"])
@@ -1997,6 +2167,7 @@ def banded_phase(torch, mods, db, spectra, times, name, frags,
         for k in pallas_sort.launches:
             pallas_sort.launches[k] = 0
         trescore.launches = 0
+        reset_peak(topen)
         torch.cuda.reset_peak_memory_stats()
         with Recording(tbanded.NarrowBanded, "dispatch",
                        lambda out, *a, **k: calls.append(out)):
@@ -2006,6 +2177,7 @@ def banded_phase(torch, mods, db, spectra, times, name, frags,
             wall_s = time.perf_counter() - t0
         launches = dict(pallas_sort.launches)
         r_launches = trescore.launches
+        peak_launches = dict(topen.launches)
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         lp = dict(scorer.last_plan)
         totmax = [int(c[1].item()) for c in calls]
@@ -2017,9 +2189,11 @@ def banded_phase(torch, mods, db, spectra, times, name, frags,
             f"totmax {totmax}, overflow reruns in the phase {reruns} (in "
             f"the measured batch {measured_reruns}); "
             f"launches {launches}, stage1_counts {pallas_stage1.launches}, "
-            f"rescore {r_launches}; peak device memory {peak_gib:.2f} GiB")
+            f"rescore {r_launches}, {peak_launches}; peak device memory "
+            f"{peak_gib:.2f} GiB")
         assert calls and lp.get("banded"), f"{name}: no banded dispatch"
         assert r_launches > 0, f"{name}: the rescore kernel did not launch"
+        assert all(peak_launches[k] > 0 for k in PEAK_KERNELS), peak_launches
         assert launches["row_sort" if not lowres else "cluster_sort"] > 0, (
             launches)
         t = tables[0]
@@ -2031,7 +2205,7 @@ def banded_phase(torch, mods, db, spectra, times, name, frags,
                    nbcov=[c[3] for c in calls], F=[c[2] for c in calls],
                    totmax=totmax, overflow_reruns=reruns,
                    launches=launches, rescore_launches=r_launches,
-                   peak_device_gib=peak_gib)
+                   peak_launches=peak_launches, peak_device_gib=peak_gib)
 
         # the candidate-major stage 1 on the same batch
         with EnvSet("SAGE_TPU_NARROW_BANDED", "0"):
@@ -2087,9 +2261,15 @@ def banded_phase(torch, mods, db, spectra, times, name, frags,
         # the batch once more, its sort inputs recorded
         sorts = []
         scorer._psm_counter = 1
+        if peak_in is not None:
+            peak_in.clear()
         with Recording(topen, "bitonic_sort_rows",
-                       lambda out, x, *a, **k: sorts.append(x.clone())):
+                       lambda out, x, *a, **k: sorts.append(x.clone())), \
+                capture_peak(topen, tbanded,
+                             peak_in if peak_in is not None else {}):
             again = scorer.score_table(batch)
+        if peak_in is not None:
+            peak_in["searcher"] = nb
         assert_tables_equal(again, t, f"{name} recorded run")
         # one launch for each sort of the measured run (unless a rerun
         # added sorts): the cluster kernel for rows past the one-pass
@@ -2100,13 +2280,9 @@ def banded_phase(torch, mods, db, spectra, times, name, frags,
             launches[k] >= n for k, n in want.items()), (launches, want)
         assert not lowres or n_long == len(sorts) > 0
         breakdown = profile_batch(
-            torch, scorer, batch,
-            [(tbanded, "_bounded_search"), (tbanded, "_open_count_core"),
-             (topen, "bitonic_sort_rows"), (tsearch, "rescore_indexed")],
-            {"row_sort": "row_sort_kernel",
-             "cluster_sort": "cluster_sort_kernel",
-             "rescore": "rescore_kernel"},
-        )
+            torch, scorer, batch, banded_profile_ranges(tbanded, topen,
+                                                        tsearch),
+            PEAK_KERNEL_KEYS)
         rec["batch_breakdown"] = breakdown
         rec["sort_rows"] = [list(x.shape) for x in sorts]
 
@@ -2142,7 +2318,8 @@ def crossover_phase(torch, mods, db, spectra, times):
     (SAGE_TPU_NARROW_BANDED=1 and =0) and timed in the order banded,
     candidate-major, candidate-major, banded; every column must be equal.
     One batch of each is then profiled: the stage 1's device ms (banded:
-    binary search, count core, sort kernels; candidate-major: stage-1
+    the range search, entry gather, sort and run-count kernels and the
+    torch ops around them; candidate-major: stage-1
     kernel and its top-K layout) beside the batch's device busy time.
     Records per cell whether banded won both repetitions and which path
     the auto gate takes there."""
@@ -2152,12 +2329,9 @@ def crossover_phase(torch, mods, db, spectra, times):
     B = BANDED_BATCH
     warm, batch = spectra[:B], spectra[B:2 * B]
     flags = {"banded": "1", "candidate_major": "0"}
-    ranged = [(tbanded, "_bounded_search"), (tbanded, "_open_count_core"),
+    ranged = [(tbanded, "_banded_ranges"), (tbanded, "_open_count_core"),
               (tsearch, "_topk_layout"), (tsearch, "rescore_indexed")]
-    kernel_keys = {"stage1_counts": "stage1_counts",
-                   "row_sort": "row_sort_kernel",
-                   "cluster_sort": "cluster_sort_kernel",
-                   "rescore": "rescore_kernel"}
+    kernel_keys = {"stage1_counts": "stage1_counts", **PEAK_KERNEL_KEYS}
     cells = []
     with Phase("19_banded_crossover", times), \
             EnvSet("SAGE_TPU_OPEN_THRESHOLD", str(1 << 20)):
@@ -2206,10 +2380,13 @@ def crossover_phase(torch, mods, db, spectra, times):
                         ph = profile_batch(torch, sc, batch, ranged,
                                            kernel_keys, top=0)
                     if path == "banded":
-                        s1 = (ph.get("_bounded_search_device_ms", 0)
+                        # torch ops inside the two ranges, and the kernels
+                        # (launched through ctypes, so outside any range)
+                        s1 = (ph.get("_banded_ranges_device_ms", 0)
                               + ph.get("_open_count_core_device_ms", 0)
-                              + ph.get("row_sort_kernel_device_ms", 0)
-                              + ph.get("cluster_sort_kernel_device_ms", 0))
+                              + sum(ph.get(f"{k}_kernel_device_ms", 0)
+                                    for k in ("row_sort", "cluster_sort")
+                                    + PEAK_KERNELS))
                     else:
                         s1 = (ph.get("stage1_counts_kernel_device_ms", 0)
                               + ph.get("_topk_layout_device_ms", 0))
@@ -2438,6 +2615,307 @@ def rescore_phase(torch, trescore, captured, dev, times):
         for path, (args, kw) in captured.items():
             rescore_check(torch, trescore, args, kw, path)
             rows[path] = time_rescore(torch, trescore, args, kw, path)
+    return rows
+
+
+def peak_cases_module():
+    """tests/_peak_cases.py, loaded by path (it imports numpy, torch and
+    tests/_rescore_cases.py)."""
+    import importlib.util
+
+    sys.modules.setdefault("_rescore_cases", rescore_cases_module())
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "_peak_cases.py")
+    spec = importlib.util.spec_from_file_location("_peak_cases", path)
+    cases = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cases)
+    return cases
+
+
+def _equal_outputs(torch, got, want, what):
+    """Every tensor of ``got`` equal to ``want``'s (None where it is)."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None), what
+        assert g is None or (g.dtype == w.dtype and torch.equal(g, w)), what
+
+
+def peak_edge_checks(torch, topen, tbanded, dev):
+    """The three kernels against their plain versions at crafted edges,
+    tests/_peak_cases.py's generators as the card tests use them: the
+    range search's three forms at three tolerance kinds and Z 1 and 3
+    (fragments on the IEEE bounds, NaN, -inf, 0, +inf pads, invalid
+    slots, an empty band); the gather's two layouts and two key forms at
+    Z 1 and 3, nbcov 1 and 3, rows that fit and rows past F; the count's
+    two key forms at Z 1 and 3, nbcov 1 and 4, K 50 and 80, and rows of
+    12,000 runs that fill and compact its top-K buffer (K 50 and
+    1024). Returns the number of inputs checked."""
+    import itertools
+
+    pc = peak_cases_module()
+    n = 0
+
+    def on(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    for tol in (("ppm", -10.0, 10.0), ("pct", -0.001, 0.002),
+                ("da", -0.02, 0.02)):
+        for Zb in (1, 3):
+            frag_mz, off, cs = pc.range_masses(tol, seed=Zb)
+            nb = off.size - 1
+            masses = pc.range_peaks(cs, 7, 16, seed=Zb)
+            peaks = on(np.stack([masses, np.ones_like(masses)]))
+            tabs = pc.open_range_tables(topen, frag_mz, off, dev)
+            rng = np.random.default_rng(Zb)
+            kw = dict(Zb=Zb, tol=tol)
+            a = (tabs, peaks, on(rng.integers(0, nb, (7, 3))),
+                 on(rng.random((7, 3)) < 0.8))
+            _equal_outputs(torch, topen._device_ranges(*a, **kw),
+                           topen._device_ranges_plain(*a, **kw), tol)
+            a = (tabs, peaks, on(rng.integers(0, 7, 11)),
+                 on(rng.integers(0, nb, 11)), on(rng.random(11) < 0.8))
+            _equal_outputs(torch, topen._device_ranges_flat(*a, **kw),
+                           topen._device_ranges_flat_plain(*a, **kw), tol)
+            bands = np.clip(rng.integers(0, nb, 7)[:, None] + np.arange(3),
+                            0, nb - 1)
+            valid = rng.random((7, 3)) < 0.8
+            bb = np.stack([off[bands], np.where(valid, off[bands + 1],
+                                                off[bands])], -1)
+            a = (on(frag_mz), peaks[0], on(bb.astype(np.int32)))
+            kw["nstep"] = int(np.ceil(np.log2(np.diff(off).max()))) + 2
+            _equal_outputs(torch, tbanded._banded_ranges(*a, **kw),
+                           tbanded._banded_ranges_plain(*a, **kw), tol)
+            n += 3
+    for chunked, Z, nbcov, packed, overflow in itertools.product(
+            (False, True), (1, 3), (1, 3), (True, False), (False, True)):
+        pep, st, ln = pc.entries_case(
+            Z * 10 + nbcov, B=5, nbcov=nbcov, Z=Z, Pk=8, chunked=chunked,
+            F=384, Wc=8, overflow=overflow)
+        a = (on(pep.reshape(-1, 64)), on(st), on(ln))
+        kw = dict(F=384, Wc=8, Pk=8, Z=Z, nbcov=nbcov, chunked=chunked,
+                  packed=packed)
+        _equal_outputs(torch, topen.open_entries(*a, **kw),
+                       topen.open_entries_plain(*a, **kw), kw)
+        n += 1
+    cases = [dict(case=pc.count_case(Z + 7 * nbcov + K, B=6, nbcov=nbcov,
+                                     F=512, W=640, Z=Z, packed=packed, R=40,
+                                     max_run=3),
+                  F=512, K=K, nbcov=nbcov, Z=Z, packed=packed)
+             for Z, nbcov, packed, K in itertools.product(
+                 (1, 3), (1, 4), (True, False), (50, 80))]
+    for K in (50, 1024):
+        rows, zs, spec, i0, i1, maxz = pc.count_case(
+            5, B=3, nbcov=1, F=16384, W=16384, Z=1, packed=True, R=6,
+            band_w=20000, max_run=1)
+        i0[:], i1[:], spec[:] = 0, 20000, [0, 2] * 3
+        cases.append(dict(case=(rows, zs, spec, i0, i1, maxz), F=16384, K=K,
+                          nbcov=1, Z=1, packed=True))
+    for c in cases:
+        rows, zs, *q = c.pop("case")
+        a = (on(rows), None if zs is None else on(zs), *(on(x) for x in q))
+        _equal_outputs(torch, topen.open_count(*a, **c),
+                       topen.open_count_plain(*a, **c), c)
+        n += 1
+    return n
+
+
+def _composite(torch, mz, band_off, dev):
+    """The (band, m/z)-sorted masses as one ascending f64 sequence,
+    band * 2^17 + m/z (every m/z is below 2^17): torch.searchsorted over
+    it finds a bound's rank in its band's segment."""
+    band = np.repeat(np.arange(band_off.size - 1), np.diff(band_off))
+    comp = band.astype(np.float64) * 131072.0 + mz[: band.size]
+    return torch.from_numpy(comp).to(dev)
+
+
+def _bounds_of(torch, topen, masses, spec, Zb, tol):
+    """f32 bounds [Zb, NS, Pk] of the rows ``spec`` of ``masses``."""
+    lo, hi = zip(*(topen._peak_bounds(masses[spec], zi, tol)
+                   for zi in range(Zb)))
+    return torch.stack(lo), torch.stack(hi)
+
+
+def ranges_work(torch, topen, form, args, kw, searcher):
+    """Bytes, compares and a library yardstick for one range search.
+    Bytes: the peak masses, the slot or segment tables and the two i32
+    outputs, each moved once. Compares: two binary searches for each
+    element that searches (a valid slot with finite bounds that meet the
+    band's span; the banded form searches every element), ceil(log2(n +
+    1)) steps over its band's (or segment's) n masses, for this run's
+    data. The yardstick: torch.searchsorted of every element's two
+    bounds, keyed band * 2^17 + bound, over the composite sequence
+    (:func:`_composite`), left for the low bound and right for the high
+    one: two calls."""
+    Zb, tol = kw["Zb"], kw["tol"]
+    dev = args[1].device
+    if form == "banded":
+        frag_mz, masses, bb = args
+        B, Pk = masses.shape
+        nbcov = bb.shape[1]
+        seg = bb.reshape(-1, 2).long()
+        n_el = B * Zb * nbcov * Pk
+        steps = torch.ceil(torch.log2((seg[:, 1] - seg[:, 0]).double() + 1))
+        ops = 2.0 * float(steps.sum()) * Zb * Pk
+        nbytes = B * Pk * 4 + bb.numel() * 4 + 2 * n_el * 4
+        off = torch.from_numpy(searcher.band_off).to(dev)
+        band = torch.searchsorted(off, seg[:, 0].contiguous(), right=True) - 1
+        spec = torch.arange(B, device=dev).repeat_interleave(nbcov)
+        comp = _composite(torch, searcher.frag_mz_dev.cpu().numpy(),
+                          searcher.band_off, dev)
+    else:
+        tabs, peaks = args[0], args[1]
+        masses = peaks[0]
+        B, Pk = masses.shape
+        _mz, _d, _d2, _ro, blen, _bo, bfirst, blast = tabs
+        if form == "grid":
+            band, valid = args[2].reshape(-1), args[3].reshape(-1)
+            spec = torch.arange(B, device=dev).repeat_interleave(
+                args[2].shape[1])
+        else:
+            spec, band, valid = args[2], args[3], args[4]
+        lo, hi = _bounds_of(torch, topen, masses, spec.long(), Zb, tol)
+        hit = (valid[None, :, None] & torch.isfinite(lo) & torch.isfinite(hi)
+               & (hi >= bfirst[band][None, :, None])
+               & (lo <= blast[band][None, :, None]))
+        steps = torch.ceil(torch.log2(blen[band].double() + 1))
+        ops = 2.0 * float((hit * steps[None, :, None]).sum())
+        n_el = band.numel() * Zb * Pk
+        nbytes = B * Pk * 4 + band.numel() * 17 + 2 * n_el * 4
+        comp = _composite(torch, searcher.frag_mz, searcher.band_off, dev)
+    lo, hi = _bounds_of(torch, topen, masses, spec.long(), Zb, tol)
+    key = band.double()[None, :, None] * 131072.0
+    v_lo = (key + torch.where(torch.isfinite(lo), lo, 0).double()).reshape(-1)
+    v_hi = (key + torch.where(torch.isfinite(hi), hi, 0).double()).reshape(-1)
+
+    def library():
+        return (torch.searchsorted(comp, v_lo),
+                torch.searchsorted(comp, v_hi, right=True))
+
+    return float(nbytes), ops, library
+
+
+def queued_device_ms(torch, fn, reps=10, spin_cycles=40_000_000):
+    """Device ms of one call of ``fn``, its host launch cost excluded:
+    after a warm call, a spin kernel holds the stream (about 20 ms) while
+    the host queues ``reps`` calls behind it between two CUDA events, so
+    the events time the calls' device work back to back. CUDA events
+    around calls that are not held (``exec_ms``) time the host's launch
+    cost instead when a call's device work is shorter than it. Raises if
+    the host took longer to queue the calls than the spin lasted."""
+    fn()
+    torch.cuda.synchronize()
+    s0, e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    s0.record()
+    torch.cuda._sleep(spin_cycles)
+    e0.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    e1.record()
+    e1.synchronize()
+    spin_ms = s0.elapsed_time(e0)
+    assert host_ms < spin_ms, (host_ms, spin_ms)
+    return e0.elapsed_time(e1) / reps
+
+
+def peak_phase(torch, topen, tbanded, captured, dev, times):
+    """Phase 27: the peak-major kernels against their plain versions on
+    the card, at crafted edges (:func:`peak_edge_checks`) and at the
+    inputs ``captured`` on the main paths (path -> kernel -> (args,
+    keywords), each path's ``searcher`` beside them): outputs equal (i32).
+    At each captured input timed with CUDA events: the kernel's calls
+    queued behind a spin kernel (:func:`queued_device_ms`), the plain
+    version, the kernel again, and calls not held (the host's launch cost
+    included), beside the card's bound for the same work and, for the
+    range search, the library yardstick (:func:`ranges_work`), timed
+    both ways. The
+    gather's bytes: the windows' starts and lengths, the live entries'
+    peptide ids and the rows (and tags) written, each once; the count's:
+    the entries that count (every query row's matched total, summed), the
+    query rows and the [R, 2K+2] output, against two int32 operations an
+    entry. Returns the rows, kernel -> path -> row."""
+    rows = {k: {} for k in PEAK_KERNELS}
+    fns = {"ranges": ("peak_ranges", topen._device_ranges,
+                      topen._device_ranges_plain, "grid"),
+           "ranges_flat": ("peak_ranges", topen._device_ranges_flat,
+                           topen._device_ranges_flat_plain, "slots"),
+           "banded_ranges": ("peak_ranges", tbanded._banded_ranges,
+                             tbanded._banded_ranges_plain, "banded"),
+           "entries": ("open_entries", topen.open_entries,
+                       topen.open_entries_plain, None),
+           "count": ("open_count", topen.open_count, topen.open_count_plain,
+                     None)}
+    with Phase("27_peak_kernels_vs_plain", times):
+        n_edge = peak_edge_checks(torch, topen, tbanded, dev)
+        log(f"# peak-major kernels vs plain: {n_edge} crafted inputs equal "
+            f"(range search, entry gather, run-count top-K)")
+        for path, store in captured.items():
+            searcher = store.get("searcher")
+            for key, (name, fn, plain, form) in fns.items():
+                if key not in store:
+                    continue
+                args, kw = store[key]
+                out = fn(*args, **kw)
+                _equal_outputs(torch, out, plain(*args, **kw),
+                               f"{name} at {path}")
+                library = None
+                if name == "peak_ranges":
+                    nbytes, ops, library = ranges_work(
+                        torch, topen, form, args, kw, searcher)
+                    bm, by = bound_ms(nbytes, ops, F32_COMPARES_PER_S)
+                    what = f"{form} form, {out[0].numel()} elements"
+                elif name == "open_entries":
+                    keys, tags = out
+                    bad = 2**31 - 1 if kw["packed"] else 1 << 30  # no entry
+                    live = int((keys != bad).sum())
+                    nbytes = (args[1].numel() * 8 + live * 4
+                              + keys.numel() * 4
+                              + (0 if tags is None else tags.numel() * 4))
+                    ops = 0.0
+                    bm, by = bound_ms(nbytes, ops, INT32_OPS_PER_S)
+                    what = (f"rows {list(keys.shape)}, {live} live entries, "
+                            f"chunked {kw['chunked']}, packed "
+                            f"{kw['packed']}")
+                else:
+                    K = kw["K"]
+                    entries = float(out[:, 2 * K].long().sum())
+                    per = 8 if (kw["Z"] > 1 and not kw["packed"]) else 4
+                    nbytes = (entries * per + out.shape[0] * 16
+                              + out.numel() * 4)
+                    ops = 2.0 * entries
+                    bm, by = bound_ms(nbytes, ops, INT32_OPS_PER_S)
+                    what = (f"{out.shape[0]} query rows, nbcov "
+                            f"{kw['nbcov']}, rows {list(args[0].shape)} cut "
+                            f"to F {kw['F']}, {int(entries)} entries count")
+                def kern():
+                    return fn(*args, **kw)
+
+                km1 = queued_device_ms(torch, kern)
+                pm = exec_ms(lambda: plain(*args, **kw), 2)
+                km2 = queued_device_ms(torch, kern)
+                call_ms = exec_ms(kern, 10)
+                lm = queued_device_ms(torch, library) if library else None
+                lib_call_ms = exec_ms(library, 10) if library else None
+                k_ms = (km1 + km2) / 2
+                row = dict(ms=k_ms, ms_runs=[km1, km2], call_ms=call_ms,
+                           plain_ms=pm, bound_ms=bm, bound_by=by,
+                           bound_share=bm / k_ms, bytes=nbytes, ops=ops,
+                           library_ms=lm, library_call_ms=lib_call_ms,
+                           input=what)
+                rows[name][path] = row
+                log(f"# {name} at {path} ({what}): equal to the plain "
+                    f"version; kernel {km1:.4f} / {km2:.4f} ms (calls "
+                    f"queued behind a spin), {call_ms:.4f} ms a call not "
+                    f"held (the host's launch cost included), plain "
+                    f"{pm:.3f} ms, library "
+                    f"{'none' if lm is None else f'{lm:.4f} ms'} "
+                    f"({'-' if lib_call_ms is None else f'{lib_call_ms:.4f}'}"
+                    f" ms not held); bound {bm:.4f} ms ({by}; "
+                    f"{nbytes / 1e6:.2f} MB, {ops / 1e9:.4f} G ops), share "
+                    f"{bm / k_ms:.3f}")
     return rows
 
 
@@ -2927,12 +3405,15 @@ def main():
         del runner
         # the rescore's inputs on the main paths, for phase 25
         rescore_in = {}
+        # the peak-major kernels' inputs on the open and banded paths, for
+        # phase 27
+        peak_in = {"open": {}, "banded": {}, "banded_lowres": {}}
         narrow, k_stage1, narrow_fused = narrow_phases(
             torch, tsearch, pallas_stage1, db, spectra, dev, times,
             rescore_in)
         open_rec, k_sort, open_fused = open_phases(
             torch, tsearch, topen, pallas_sort, db, spectra, dev, times,
-            rescore_in)
+            rescore_in, peak_in)
         cli_rec = cli_phase(torch, tmp, times)
 
     def reset_stage1():
@@ -2943,6 +3424,7 @@ def main():
         for k in pallas_sort.launches:
             pallas_sort.launches[k] = 0
         trescore.launches = 0
+        reset_peak(topen)
 
     td_narrow = two_dispatch_phase(
         torch, tsearch, "13_two_dispatch_narrow", db, narrow_fused,
@@ -2952,9 +3434,11 @@ def main():
         times, capture=(rescore_in, "two_dispatch"))
     td_open = two_dispatch_phase(
         torch, tsearch, "14_two_dispatch_open", db, open_fused, "row_sort",
-        (reset_sorts, lambda: {**pallas_sort.launches,
+        (reset_sorts, lambda: {**pallas_sort.launches, **topen.launches,
                                "rescore": trescore.launches}),
         times, open_search=True)
+    assert all(td_open["launches_all"][k] > 0 for k in PEAK_KERNELS), (
+        td_open["launches_all"])
 
     mods = {"search": tsearch, "banded": tbanded, "open": topen,
             "sort": pallas_sort, "stage1": pallas_stage1,
@@ -2963,15 +3447,18 @@ def main():
                           times)
     banded = banded_phase(torch, mods, db, spectra, times,
                           "15_banded", [("ppm", -10.0, 10.0)],
-                          cpu_spectra=64)
+                          cpu_spectra=64, peak_in=peak_in["banded"])
     lowres = banded_phase(torch, mods, db, spectra, times,
                           "16_banded_lowres",
                           [("da", -0.5, 0.5), ("da", -1.0, 1.0)], lowres=True,
-                          capture=(rescore_in, "banded_lowres"))
+                          capture=(rescore_in, "banded_lowres"),
+                          peak_in=peak_in["banded_lowres"])
     crossover = crossover_phase(torch, mods, db, spectra, times)
     chim = chimera_phase(torch, tsearch, pallas_stage1, db, times)
     rescore_rows = rescore_phase(torch, trescore, rescore_in, dev, times)
     del rescore_in
+    peak_rows = peak_phase(torch, topen, tbanded, peak_in, dev, times)
+    del peak_in
     large = large_peaks_phase(torch, mods, db, times)
     n_pep, n_frag = len(db), int(db.num_fragments)
     del db, spectra
@@ -3050,8 +3537,27 @@ def main():
             "large_peaks_two_dispatch": large["launches"]["0"]["rescore"]},
         "large_peaks": large["rescore"],
     }
+    # the peak-major kernels' main path is phase 6's open batch; their
+    # rows at phases 15's and 16's banded inputs stay beside it
+    k_peak = []
+    for name in PEAK_KERNELS:
+        main = peak_rows[name]["open"]
+        k_peak.append({
+            "name": name, "launches": open_rec["peak_launches"][name],
+            "max_abs_err": 0,
+            **{k: main[k] for k in ("ms", "plain_ms", "bound_ms",
+                                    "bound_by", "bound_share",
+                                    "library_ms")},
+            "by_input": peak_rows[name],
+            "launches_by_path": {
+                "open_fused": open_rec["peak_launches"][name],
+                "two_dispatch_open": td_open["launches_all"][name],
+                "banded": banded["peak_launches"][name],
+                "banded_lowres": lowres["peak_launches"][name],
+                "sharded_open": grid["peak_launches"][name]},
+        })
     kernels = {"kernels": []}
-    for k in (k_stage1, k_row, k_cluster, k_rescore):
+    for k in (k_stage1, k_row, k_cluster, k_rescore, *k_peak):
         src, replaces = KERNELS[k["name"]]
         kernels["kernels"].append({
             "name": k["name"], "route": "cuda", "source": src,

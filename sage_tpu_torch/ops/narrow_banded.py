@@ -11,16 +11,19 @@ holds thousands of candidates. This is the sparse form for that regime:
    default), so a narrow precursor window covers one to a few bands. Per
    (peak, fragment charge, covered band) the in-tolerance fragments are a
    contiguous range of the band's segment.
-2. The range ends are found on the device by a bounded binary search:
-   ``nstep`` steps of gather and compare over [spectra, bands, peaks]
-   lanes, with the f32 window bounds of ``tol_bounds_static`` (the
-   reference's op order), so the ranges hold exactly the fragments the
-   candidate-major compare counts.
-3. Each spectrum's entries are gathered, sorted (the row-sort kernel of
-   ``csrc/row_sort.cu``, with the merge kernel of
-   ``csrc/bitonic_merge.cu`` for rows past 2^15 keys), run-length
-   counted and masked per query row by the open search's count core
-   (``_open_count_core``): counts equal to the candidate-major stage 1's.
+2. The range ends are found on the device by a bounded binary search
+   (``_bounded_search``: ``nstep`` steps of gather and compare over
+   [spectra, bands, peaks] lanes), with the f32 window bounds of
+   ``tol_bounds_static`` (the reference's op order), so the ranges hold
+   exactly the fragments the candidate-major compare counts. On the card
+   it is one launch of ``csrc/peak_ranges.cu``'s banded form, each
+   thread one element, its bounds computed in place.
+3. Each spectrum's entries are gathered (``csrc/open_entries.cu``),
+   sorted (the row-sort kernel of ``csrc/row_sort.cu``, with the cluster
+   kernel of ``csrc/cluster_sort.cu`` for rows past 2^15 keys), run-length
+   counted and masked per query row (``csrc/open_count.cu``) by the open
+   search's count core (``_open_count_core``): counts equal to the
+   candidate-major stage 1's.
 
 The per-spectrum entry capacity F is learned: the count core reports the
 true largest entry count, and a batch past F is redone through the
@@ -34,7 +37,14 @@ import os
 import numpy as np
 import torch
 
-from .open_search import _open_count_core, _quarter_octave, spectrum_window_union
+from .open_search import (
+    _launch,
+    _on_card,
+    _open_count_core,
+    _quarter_octave,
+    _tol_args,
+    spectrum_window_union,
+)
 
 # Elements of one [spectra, F] entry matrix per count-core call: the
 # spectra of a batch are cut into chunks under it (each row's counts
@@ -62,22 +72,16 @@ def _bounded_search(frag_mz, seg_lo, seg_hi, bound, nstep: int,
     return lo
 
 
-def _banded_count(frag_mz, frag_pep, peaks_dev, bb, ints, row_spec, *, F, Pk,
-                  Zb, K, R, nbcov, tol, nstep, n_pep):
-    """Packed i32 [R, 2K+2] per-row top-K (vals, pep, matched total,
-    scored) and the batch's largest per-spectrum entry count, i32 [1] (the
-    overflow signal: the entries past F were dropped when it is >= F).
-
-    frag_mz f32 [N] and frag_pep i32 [N]: the (band, m/z)-sorted fragment
-    masses and peptide ids; peaks_dev f32 [2, B, Pk] (+inf pads); bb i32
-    [B, nbcov, 2]: each covered band's segment [lo, hi); ints i32 [8, R]
-    query rows (spectrum, p0, i0, i1, maxz, z, iso, slot); row_spec: the
-    host's ascending spectrum ids of the live rows, ``ints[0]``'s first
-    entries (the rows past them are padding sentinels)."""
+def _banded_ranges_plain(frag_mz, masses, bb, *, Zb, tol, nstep):
+    """Window ranges of every (spectrum, fragment charge, covered band,
+    peak) by :func:`_bounded_search` in each covered band's segment
+    ``bb`` i32 [B, nbcov, 2] of the (band, m/z)-sorted masses
+    ``frag_mz``: i32 [B, Zb*nbcov*Pk] starts and lengths, column
+    (zi*nbcov + k)*Pk + pk. The plain version of :func:`_banded_ranges`."""
     from .search import tol_bounds_static
 
-    masses = peaks_dev[0]
-    B = masses.shape[0]
+    B, Pk = masses.shape
+    nbcov = bb.shape[1]
     kind, lo_t, hi_t = tol
     seg_lo = bb[:, :, 0:1]  # [B, nbcov, 1]
     seg_hi = bb[:, :, 1:2]
@@ -96,8 +100,51 @@ def _banded_count(frag_mz, frag_pep, peaks_dev, bb, ints, row_spec, *, F, Pk,
                          torch.zeros_like(left))
         starts_z.append(left.reshape(B, nbcov * Pk))
         lens_z.append(ln.reshape(B, nbcov * Pk))
-    starts = torch.cat(starts_z, dim=1).to(torch.int32)  # [B, Zb*nbcov*Pk]
-    lens = torch.cat(lens_z, dim=1).to(torch.int32)
+    return (torch.cat(starts_z, dim=1).to(torch.int32),
+            torch.cat(lens_z, dim=1).to(torch.int32))
+
+
+def _banded_ranges(frag_mz, masses, bb, *, Zb, tol, nstep):
+    """:func:`_banded_ranges_plain`'s starts and lengths: on a CUDA
+    tensor one launch of csrc/peak_ranges.cu's banded form (the same
+    bounded search, each thread one (spectrum, z, band, peak) element, its
+    bounds computed in place), on a CPU tensor the plain version."""
+    if masses.device.type == "cpu":
+        return _banded_ranges_plain(frag_mz, masses, bb, Zb=Zb, tol=tol,
+                                    nstep=nstep)
+    dev = _on_card("peak_ranges", masses, bb, frag_mz)
+    masses = masses.float().contiguous()
+    bb = bb.to(torch.int32).contiguous()
+    mz = frag_mz.float().contiguous()
+    B, Pk = masses.shape
+    nbcov = int(bb.shape[1])
+    if bb.shape != (B, nbcov, 2):
+        raise ValueError(f"peak_ranges: segments {tuple(bb.shape)} for "
+                         f"{B} spectra")
+    st = torch.empty((B, Zb * nbcov * Pk), dtype=torch.int32, device=dev)
+    ln = torch.empty_like(st)
+    _launch("peak_ranges", "peak_ranges_banded", dev, masses.data_ptr(), B,
+            Pk, bb.data_ptr(), nbcov, Zb, mz.data_ptr(), mz.numel(), nstep,
+            *_tol_args(tol), st.data_ptr(), ln.data_ptr())
+    return st, ln
+
+
+def _banded_count(frag_mz, frag_pep, peaks_dev, bb, ints, row_spec, *, F, Pk,
+                  Zb, K, R, nbcov, tol, nstep, n_pep):
+    """Packed i32 [R, 2K+2] per-row top-K (vals, pep, matched total,
+    scored) and the batch's largest per-spectrum entry count, i32 [1] (the
+    overflow signal: the entries past F were dropped when it is >= F).
+
+    frag_mz f32 [N] and frag_pep i32 [N]: the (band, m/z)-sorted fragment
+    masses and peptide ids; peaks_dev f32 [2, B, Pk] (+inf pads); bb i32
+    [B, nbcov, 2]: each covered band's segment [lo, hi); ints i32 [8, R]
+    query rows (spectrum, p0, i0, i1, maxz, z, iso, slot); row_spec: the
+    host's ascending spectrum ids of the live rows, ``ints[0]``'s first
+    entries (the rows past them are padding sentinels)."""
+    masses = peaks_dev[0]
+    B = masses.shape[0]
+    starts, lens = _banded_ranges(frag_mz, masses, bb, Zb=Zb, tol=tol,
+                                  nstep=nstep)
     totmax = lens.sum(dim=1, dtype=torch.int32).max().reshape(1)
 
     def count(st, ln, r0, r1, s0):

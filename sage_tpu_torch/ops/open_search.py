@@ -11,21 +11,30 @@ bucketed index walk, database.rs:480-536 and scoring.rs:335-382):
    by (band, m/z). For every (peak, fragment charge, covered band) the
    tolerance window is a contiguous range of that band's sorted
    segment: on the host by ``np.searchsorted`` (:meth:`OpenSearcher.ranges`)
-   or on the device by a three-level decimated rank probe with the same
-   ranks (:meth:`OpenSearcher.ranges_device`, ``ranges_device_slots``).
+   or on the device with the same ranks (:meth:`OpenSearcher.ranges_device`,
+   ``ranges_device_slots``): on the card one launch of
+   ``csrc/peak_ranges.cu`` (a binary search a window end), on the CPU
+   the plain version, a three-level decimated rank probe (:func:`_probe`).
    Only bands that meet the spectrum's precursor-window union are
    searched.
 2. Each range's peptide ids are gathered into one entry row per
-   (spectrum, band), as packed int32 keys ``((2^25 - pep) << 5) | z``
+   (spectrum, band) (:func:`open_entries`; ``csrc/open_entries.cu`` on
+   the card), as packed int32 keys ``((2^25 - pep) << 5) | z``
    (``2^25 - pep`` when there is one fragment-charge plane), and each row
    is sorted by the kernels of ``pallas_sort`` (peptide descending;
    invalid entries are INT32_MAX and sort to the tail); rows past
-   ``MAX_F`` keys take ``torch.sort``, as the JAX package takes
-   ``lax.sort`` there.
+   ``MAX_F`` keys take ``torch.sort`` of -pep keys, as the JAX package
+   takes ``lax.sort`` there.
 3. Per query row (spectrum x charge x isotope) the entries are masked by
    the row's precursor range [i0, i1) and fragment-charge bound, counted
    by run length, and the top-K (count desc, peptide desc) kept exactly:
-   the PreScore tie rule (scoring.rs:43-49).
+   the PreScore tie rule (scoring.rs:43-49) (:func:`open_count`;
+   ``csrc/open_count.cu`` on the card, one block a query row walking
+   only its window's entries).
+
+Every wrapper launches its kernel on a CUDA tensor and takes the plain
+version (torch ops, kept beside it) on a CPU tensor;
+``launches`` counts the kernels' launches.
 
 Returns the packed [R, 2K+2] i32 layout of the fused path's merge
 (vals[K], pep[K], matched_total, scored); the two-dispatch path takes the
@@ -36,6 +45,7 @@ JAX package packs as int32 stays int32.
 
 from __future__ import annotations
 
+import ctypes
 import os
 from typing import Dict, Tuple
 
@@ -43,6 +53,7 @@ import numpy as np
 import torch
 
 from .pallas_sort import INT32_MAX, bitonic_sort_rows, use_pallas_sort
+from .pallas_stage1 import _TOL_KIND
 
 F32 = np.float32
 
@@ -57,6 +68,68 @@ _CHUNK = 1 << 24
 # packed-key constants: peptide ids below 2^25, INT32_MAX for no entry
 _PMAX = 1 << 25
 _NOPEP = 1 << 30
+
+# Launches of the CUDA kernels, counted by their wrappers: the window-range
+# search (csrc/peak_ranges.cu; its banded form is launched from
+# ops/narrow_banded.py), the entry gather (csrc/open_entries.cu) and the
+# run-count top-K (csrc/open_count.cu).
+launches = {"peak_ranges": 0, "open_entries": 0, "open_count": 0}
+
+
+def _bind(name: str):
+    from ._cuda_build import load
+
+    lib = load(name)
+    i, ll, f, p = (ctypes.c_int, ctypes.c_longlong, ctypes.c_float,
+                   ctypes.c_void_p)
+    sigs = {
+        "peak_ranges": {
+            "peak_ranges_open": [p, i, i, p, p, p, ll, i, i, i] + [p] * 6
+                                + [i, f, f, p, p, p],
+            "peak_ranges_banded": [p, i, i, p, i, i, p, ll, i, i, f, f, p,
+                                   p, p],
+        },
+        "open_entries": {"open_entries": [p, ll, p, p] + [i] * 8
+                         + [p] * 4},
+        "open_count": {"open_count": [p, ll, p, ll] + [i] * 4 + [p] * 4
+                       + [i] * 3 + [p, p],
+                       "open_count_max_k": []},
+    }[name]
+    for fn, args in sigs.items():
+        c = getattr(lib, fn)
+        if c.argtypes is None:
+            c.argtypes = args
+            c.restype = ctypes.c_int
+    return lib
+
+
+def _launch(name: str, fn: str, device, *args):
+    """Call the C entry point ``fn`` of ``csrc/<name>.cu`` on ``device``'s
+    current stream; raise if the launch failed, else count it."""
+    lib = _bind(name)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(lib, fn)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn} launch failed: CUDA error {rc}")
+    launches[name] += 1
+
+
+def _on_card(name: str, *ts):
+    """Raise unless every tensor of ``ts`` lies on one CUDA device."""
+    dev = ts[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    if any(t.device != dev for t in ts):
+        raise ValueError(f"{name}: tensors must share one device")
+    return dev
+
+
+def _tol_args(tol):
+    kind, lo, hi = tol
+    if kind not in _TOL_KIND:
+        raise ValueError(f"tolerance kind {kind!r}")
+    return (_TOL_KIND[kind], float(np.float32(lo)), float(np.float32(hi)))
 
 
 def _quarter_octave(n: int) -> int:
@@ -173,11 +246,12 @@ def _peak_bounds(masses, zi: int, tol):
     return tol_bounds_static(kind, lo_t, hi_t, masses * float(zi + 1))
 
 
-def _device_ranges(tabs, peaks, band_ids, bvalid, *, Zb, tol):
-    """Exact per-(z, covered band, peak) window ranges on the device for
-    the [B, nbcov] grid of (spectrum, covered band) slots: i32 [B,
-    Zb*nbcov*Pk] starts and lengths, column (zi*nbcov + k)*Pk + pk —
-    equal to :meth:`OpenSearcher.ranges`."""
+def _device_ranges_plain(tabs, peaks, band_ids, bvalid, *, Zb, tol):
+    """Exact per-(z, covered band, peak) window ranges for the [B, nbcov]
+    grid of (spectrum, covered band) slots: i32 [B, Zb*nbcov*Pk] starts
+    and lengths, column (zi*nbcov + k)*Pk + pk — equal to
+    :meth:`OpenSearcher.ranges`. The plain version of
+    :func:`_device_ranges`, through :func:`_probe`."""
     masses = peaks[0]
     B, Pk = masses.shape
     nbcov = band_ids.shape[1]
@@ -194,11 +268,11 @@ def _device_ranges(tabs, peaks, band_ids, bvalid, *, Zb, tol):
     return torch.cat(st_l, dim=1), torch.cat(ln_l, dim=1)
 
 
-def _device_ranges_flat(tabs, peaks, slot_spec, slot_band, slot_valid, *,
-                        Zb, tol):
-    """Slot-major form of :func:`_device_ranges` for an explicit list of
-    (spectrum, band) slots: i32 [NS, Zb*Pk], column zi*Pk + pk; invalid
-    (padding) slots come out all zero."""
+def _device_ranges_flat_plain(tabs, peaks, slot_spec, slot_band,
+                              slot_valid, *, Zb, tol):
+    """Slot-major form of :func:`_device_ranges_plain` for an explicit
+    list of (spectrum, band) slots: i32 [NS, Zb*Pk], column zi*Pk + pk;
+    invalid (padding) slots come out all zero."""
     masses = peaks[0]
     st_l, ln_l = [], []
     for zi in range(Zb):
@@ -208,6 +282,58 @@ def _device_ranges_flat(tabs, peaks, slot_spec, slot_band, slot_valid, *,
         st_l.append(st)
         ln_l.append(ln)
     return torch.cat(st_l, dim=1), torch.cat(ln_l, dim=1)
+
+
+def _peak_ranges(tabs, masses, band, valid, *, nsub, Zb, tol, spec=None):
+    """The window ranges of csrc/peak_ranges.cu's open form: i32
+    [NS / nsub, Zb*nsub*Pk] starts and lengths of every (slot, z, peak),
+    slot s reading spectrum ``spec[s]`` (or s // nsub) of ``masses``
+    [B, Pk] in band ``band[s]``, column (zi*nsub + s % nsub)*Pk + pk."""
+    mz64, _decg, _dec2, row_off, blen, boff, bfirst, blast = tabs
+    dev = _on_card("peak_ranges", masses, band, valid, mz64)
+    B, Pk = masses.shape
+    NS = int(band.shape[0])
+    ts = [masses.float().contiguous(), band.long().contiguous(),
+          valid.bool().contiguous()]
+    if spec is not None:
+        spec = spec.to(dev).long().contiguous()
+    st = torch.empty((NS // nsub, Zb * nsub * Pk), dtype=torch.int32,
+                     device=dev)
+    ln = torch.empty_like(st)
+    _launch("peak_ranges", "peak_ranges_open", dev,
+            ts[0].data_ptr(), B, Pk,
+            None if spec is None else spec.data_ptr(), ts[1].data_ptr(),
+            ts[2].data_ptr(), NS, nsub, Zb, int(blen.shape[0]),
+            mz64.data_ptr(), row_off.data_ptr(), blen.data_ptr(),
+            boff.data_ptr(), bfirst.data_ptr(), blast.data_ptr(),
+            *_tol_args(tol), st.data_ptr(), ln.data_ptr())
+    return st, ln
+
+
+def _device_ranges(tabs, peaks, band_ids, bvalid, *, Zb, tol):
+    """Exact per-(z, covered band, peak) window ranges for the [B, nbcov]
+    grid of (spectrum, covered band) slots, laid out as
+    :func:`_device_ranges_plain`'s: on a CUDA tensor one launch of
+    csrc/peak_ranges.cu, on a CPU tensor the plain version."""
+    if peaks.device.type == "cpu":
+        return _device_ranges_plain(tabs, peaks, band_ids, bvalid, Zb=Zb,
+                                    tol=tol)
+    nbcov = int(band_ids.shape[1])
+    return _peak_ranges(tabs, peaks[0], band_ids.reshape(-1),
+                        bvalid.reshape(-1), nsub=nbcov, Zb=Zb, tol=tol)
+
+
+def _device_ranges_flat(tabs, peaks, slot_spec, slot_band, slot_valid, *,
+                        Zb, tol):
+    """Slot-major form of :func:`_device_ranges` for an explicit list of
+    (spectrum, band) slots: i32 [NS, Zb*Pk], column zi*Pk + pk; invalid
+    (padding) slots come out all zero. A CUDA tensor launches
+    csrc/peak_ranges.cu, a CPU tensor takes the plain version."""
+    if peaks.device.type == "cpu":
+        return _device_ranges_flat_plain(tabs, peaks, slot_spec, slot_band,
+                                         slot_valid, Zb=Zb, tol=tol)
+    return _peak_ranges(tabs, peaks[0], slot_band, slot_valid, nsub=1,
+                        Zb=Zb, tol=tol, spec=slot_spec)
 
 
 def _range_stats(starts, lens, *, nbcov=1, Zb=1, Pk=1):
@@ -316,21 +442,17 @@ def _topk_counts(cnt, K):
     return (top >> 32).to(torch.int32), (Fax - 1) - (top & 0xFFFFFFFF)
 
 
-def _open_count_core(frag_pep8, starts, lens, row_spec, row_i0, row_i1,
-                     row_maxz, *, F, Wc, Pk, Z, K, R, chunked, nbcov=1,
-                     n_pep):
-    """Peak-major preliminary count. Returns (vals [R, K], cand [R, K],
-    matched_total [R], scored [R]), all i32.
-
-    With nbcov > 1 each (spectrum, covered band) pair becomes its own
-    pseudo-row, so every sort runs on the short per-band axis F. That is
-    exact because bands partition peptide ids: per-band run-length counts
-    are the global counts, every global top-K candidate survives its
-    band's top-K, and matched/scored totals sum across bands. The global
-    top-K is a (count desc, peptide desc) sort over the nbcov*K per-band
-    winners."""
+def open_entries_plain(frag_pep8, starts, lens, *, F, Wc, Pk, Z, nbcov,
+                       chunked, packed):
+    """The entry rows that the sort reads, one pseudo-row a (spectrum,
+    covered band) pair, from the windows' ranges ``starts`` / ``lens`` i32
+    [B, Z*nbcov*Pk] (column (z*nbcov + k)*Pk + pk): [B*nbcov, W] i32, W =
+    Wc*V_ROW (the row-aligned gather, ``chunked``) or F (the ragged
+    flatten). ``packed``: the sort kernels' key ((2^25 - pep) << 5) | z
+    (2^25 - pep with Z == 1), INT32_MAX where there is no entry, and no
+    tags; else -pep (2^30 where there is no entry) and, for Z > 1, i32
+    fragment-charge tags. Returns (keys, tags or None)."""
     B = starts.shape[0]
-    dev = starts.device
     if nbcov > 1:
         BN = B * nbcov
         st = starts.view(B, Z, nbcov, Pk).permute(0, 2, 1, 3).reshape(
@@ -338,41 +460,95 @@ def _open_count_core(frag_pep8, starts, lens, row_spec, row_i0, row_i1,
         ln = lens.view(B, Z, nbcov, Pk).permute(0, 2, 1, 3).reshape(
             BN, Z * Pk)
     else:
-        BN, st, ln = B, starts, lens
+        st, ln = starts, lens
     if chunked:
         neg, z_of = _entries_rows(frag_pep8, st, ln, Wc, Pk, Z)
     else:
         neg, z_of = _entries_flat(frag_pep8, st, ln, F, Pk, Z)
-    # Sort each entry row by peptide DESCENDING; invalid entries go to the
-    # tail, so the axis can be cut back to F (> any true entry count).
-    # Inside one peptide's run the entries' order may differ between the
-    # two sorts below, which changes no count: runs are delimited by
-    # peptide boundaries and the z mask is per entry.
-    if use_pallas_sort(neg.shape[1], n_pep):
-        # the row-sort kernels: one i32 key per entry, the z tag packed
-        # into the low 5 bits
-        pep_e = torch.where(neg < _NOPEP, -neg, -1)
-        valid_e = pep_e >= 0
-        key = ((_PMAX - pep_e) if z_of is None
-               else (((_PMAX - pep_e) << 5) | z_of))
-        key = torch.where(valid_e, key, INT32_MAX).to(torch.int32)
-        key_s = bitonic_sort_rows(key)[:, :F]
-        valid_s = key_s != INT32_MAX
-        if z_of is None:
-            pep_sorted = torch.where(valid_s, _PMAX - key_s, -1)
+    if not packed:
+        return neg, z_of
+    # the row-sort kernels: one i32 key per entry, the z tag packed into
+    # the low 5 bits
+    pep_e = torch.where(neg < _NOPEP, -neg, -1)
+    valid_e = pep_e >= 0
+    key = ((_PMAX - pep_e) if z_of is None
+           else (((_PMAX - pep_e) << 5) | z_of))
+    return torch.where(valid_e, key, INT32_MAX).to(torch.int32), None
+
+
+def open_entries(frag_pep8, starts, lens, *, F, Wc, Pk, Z, nbcov, chunked,
+                 packed):
+    """:func:`open_entries_plain`'s rows: on a CUDA tensor one launch of
+    csrc/open_entries.cu, on a CPU tensor the plain version. The window
+    lengths are >= 0, as every range search gives them."""
+    if starts.device.type == "cpu":
+        return open_entries_plain(frag_pep8, starts, lens, F=F, Wc=Wc, Pk=Pk,
+                                  Z=Z, nbcov=nbcov, chunked=chunked,
+                                  packed=packed)
+    dev = _on_card("open_entries", starts, lens, frag_pep8)
+    pep = frag_pep8.reshape(-1)
+    st = starts.to(torch.int32).contiguous()
+    ln = lens.to(torch.int32).contiguous()
+    checks = (
+        (pep.dtype == torch.int32 and pep.is_contiguous(),
+         "the fragment-peptide table must be a contiguous i32 tensor"),
+        (st.dim() == 2 and st.shape == ln.shape
+         and st.shape[1] == Z * nbcov * Pk,
+         f"ranges {tuple(st.shape)} for Z={Z}, nbcov={nbcov}, Pk={Pk}"),
+        (not chunked or pep.numel() % V_ROW == 0,
+         "the row-aligned gather needs whole 64-entry table rows"),
+    )
+    for ok, msg in checks:
+        if not ok:
+            raise ValueError(f"open_entries: {msg}")
+    B = st.shape[0]
+    BN = B * nbcov
+    W = Wc * V_ROW if chunked else F
+    keys = torch.empty((BN, W), dtype=torch.int32, device=dev)
+    tags = (torch.empty_like(keys) if not packed and Z > 1 else None)
+    scratch = torch.empty((BN, Z * Pk), dtype=torch.int64, device=dev)
+    if BN * W:
+        _launch("open_entries", "open_entries", dev, pep.data_ptr(),
+                pep.numel(), st.data_ptr(), ln.data_ptr(), B, nbcov, Z, Pk,
+                int(chunked), Wc, F, int(packed), scratch.data_ptr(),
+                keys.data_ptr(), None if tags is None else tags.data_ptr())
+    return keys, tags
+
+
+def open_count_plain(rows, z_sorted, row_spec, row_i0, row_i1, row_maxz, *,
+                     F, K, nbcov, Z, packed):
+    """Per query row: mask the sorted entry rows by the row's precursor
+    range [i0, i1) and fragment-charge bound, count each peptide's run,
+    keep the exact top-K in (count desc, peptide desc) order. ``rows``
+    [BN, >= F] i32, sorted ascending, as :func:`open_entries` writes them
+    (``packed``, or -pep keys with ``z_sorted`` [BN, F] tags for Z > 1),
+    cut to their first F columns here; ``row_spec`` [R] names each query
+    row's spectrum, whose pseudo-rows are spec*nbcov + slot. Returns the
+    fused merge's i32 [R, 2K+2] layout (vals, cand, matched_total,
+    scored).
+
+    With nbcov > 1 each (spectrum, covered band) pair is its own
+    pseudo-row. That is exact because bands partition peptide ids:
+    per-band run-length counts are the global counts, every global top-K
+    candidate survives its band's top-K, and matched/scored totals sum
+    across bands. The global top-K is a (count desc, peptide desc) sort
+    over the nbcov*K per-band winners."""
+    BN = rows.shape[0]
+    R = row_spec.shape[0]
+    dev = rows.device
+    x = rows[:, :F]
+    if packed:
+        valid_s = x != INT32_MAX
+        if Z == 1:
+            pep_sorted = torch.where(valid_s, _PMAX - x, -1)
             z_sorted = None
         else:
-            pep_sorted = torch.where(valid_s, _PMAX - (key_s >> 5), -1)
-            z_sorted = torch.where(valid_s, key_s & 31, 0)
+            pep_sorted = torch.where(valid_s, _PMAX - (x >> 5), -1)
+            z_sorted = torch.where(valid_s, x & 31, 0)
     else:
-        # rows past MAX_F keys, or peptide ids past the packed key's 25
-        # bits: the JAX package sorts these with lax.sort outside any
-        # kernel, and the port with torch.sort under the same gate
-        neg_s, order = torch.sort(neg, dim=1, stable=True)
-        neg_s = neg_s[:, :F]
-        pep_sorted = torch.where(neg_s < _NOPEP, -neg_s, -1)
-        z_sorted = (None if z_of is None
-                    else torch.gather(z_of, 1, order[:, :F]))
+        pep_sorted = torch.where(x < _NOPEP, -x, -1)
+        if z_sorted is not None:
+            z_sorted = z_sorted[:, :F]
 
     Fax = int(pep_sorted.shape[1])
     change = pep_sorted[:, 1:] != pep_sorted[:, :-1]
@@ -430,29 +606,151 @@ def _open_count_core(frag_pep8, starts, lens, row_spec, row_i0, row_i1,
         v, idx = _topk_counts(cnt, K)
         vals[a:b] = v
         cand[a:b] = torch.where(v > 0, torch.gather(p, 1, idx), 0)
-    if nbcov == 1:
-        return vals, cand, mtot, scored
-    # exact global top-K: (count desc, peptide desc) over the union of the
-    # per-band top-Ks, as one int64 key (cand >= 0)
-    key = ((vals.long() << 32) | cand.long()).view(R, nbcov * K)
-    key = torch.sort(key, dim=1, descending=True).values[:, :K]
-    vals_m = (key >> 32).to(torch.int32)
-    cand_m = torch.where(vals_m > 0, (key & 0xFFFFFFFF).to(torch.int32), 0)
-    return (vals_m, cand_m, mtot.view(R, nbcov).sum(dim=1, dtype=torch.int32),
-            scored.view(R, nbcov).sum(dim=1, dtype=torch.int32))
+    if nbcov > 1:
+        # exact global top-K: (count desc, peptide desc) over the union of
+        # the per-band top-Ks, as one int64 key (cand >= 0)
+        key = ((vals.long() << 32) | cand.long()).view(R, nbcov * K)
+        key = torch.sort(key, dim=1, descending=True).values[:, :K]
+        vals = (key >> 32).to(torch.int32)
+        cand = torch.where(vals > 0, (key & 0xFFFFFFFF).to(torch.int32), 0)
+        mtot = mtot.view(R, nbcov).sum(dim=1, dtype=torch.int32)
+        scored = scored.view(R, nbcov).sum(dim=1, dtype=torch.int32)
+    return torch.cat([vals, cand, mtot[:, None], scored[:, None]], dim=1)
+
+
+def open_count(rows, z_sorted, row_spec, row_i0, row_i1, row_maxz, *, F, K,
+               nbcov, Z, packed):
+    """:func:`open_count_plain`'s [R, 2K+2] output: on a CUDA tensor one
+    launch of csrc/open_count.cu (one block a query row, walking only
+    its window's entries), on a CPU tensor the plain version. Every
+    ``rows`` row must be sorted ascending, as the sorts leave it."""
+    if rows.device.type == "cpu":
+        return open_count_plain(rows, z_sorted, row_spec, row_i0, row_i1,
+                                row_maxz, F=F, K=K, nbcov=nbcov, Z=Z,
+                                packed=packed)
+    qs = [t.to(torch.int32).contiguous()
+          for t in (row_spec, row_i0, row_i1, row_maxz)]
+    dev = _on_card("open_count", rows, *qs,
+                   *(() if z_sorted is None else (z_sorted,)))
+    BN = rows.shape[0]
+    R = qs[0].shape[0]
+    has_z = Z > 1
+    checks = (
+        (rows.dtype == torch.int32 and rows.dim() == 2
+         and rows.stride(1) == 1, "rows must be i32 [BN, W] with unit "
+         "column stride"),
+        (packed or not has_z or (
+            z_sorted is not None and z_sorted.dtype == torch.int32
+            and z_sorted.stride(1) == 1 and z_sorted.shape[0] == BN),
+         "-pep keys with Z > 1 need i32 charge tags beside them"),
+        (all(q.shape == (R,) for q in qs), "query rows must be [R] each"),
+        (1 <= K <= _bind("open_count").open_count_max_k(),
+         f"K={K} is past the kernel's top-K buffer"),
+    )
+    for ok, msg in checks:
+        if not ok:
+            raise ValueError(f"open_count: {msg}")
+    out = torch.empty((R, 2 * K + 2), dtype=torch.int32, device=dev)
+    Fax = min(int(F), int(rows.shape[1]))
+    if R:
+        zs = z_sorted if (has_z and not packed) else None
+        _launch("open_count", "open_count", dev, rows.data_ptr(),
+                rows.stride(0), None if zs is None else zs.data_ptr(),
+                0 if zs is None else zs.stride(0), BN, Fax,
+                (1 if has_z else 0) if packed else 2, int(has_z),
+                *(q.data_ptr() for q in qs), R, nbcov, K, out.data_ptr())
+    return out
+
+
+def _open_count_packed(frag_pep8, starts, lens, row_spec, row_i0, row_i1,
+                       row_maxz, *, F, Wc, Pk, Z, chunked, nbcov, n_pep, K):
+    """The count core in the fused merge's [R, 2K+2] layout: the entry
+    gather, the sort, the run-count top-K."""
+    W = Wc * V_ROW if chunked else F
+    # the sort kernels sort rows up to MAX_F keys of the packed key; past
+    # that, or for peptide ids past its 25 bits, torch.sort sorts -pep
+    # keys, as the JAX package takes lax.sort there
+    packed = use_pallas_sort(W, n_pep)
+    keys, z_of = open_entries(frag_pep8, starts, lens, F=F, Wc=Wc, Pk=Pk,
+                              Z=Z, nbcov=nbcov, chunked=chunked,
+                              packed=packed)
+    # Sort each entry row by peptide DESCENDING; invalid entries go to the
+    # tail, so the count reads only the first F columns (F > any true
+    # entry count). Inside one peptide's run the entries' order may
+    # differ between the two sorts, which changes no count: runs are
+    # delimited by peptide boundaries and the z mask is per entry.
+    if packed:
+        rows, z_sorted = bitonic_sort_rows(keys), None
+    else:
+        rows, order = torch.sort(keys, dim=1, stable=True)
+        z_sorted = (None if z_of is None
+                    else torch.gather(z_of, 1, order[:, :F]))
+    return open_count(rows, z_sorted, row_spec, row_i0, row_i1, row_maxz,
+                      F=F, K=K, nbcov=nbcov, Z=Z, packed=packed)
+
+
+def _open_count_core(frag_pep8, starts, lens, row_spec, row_i0, row_i1,
+                     row_maxz, *, F, Wc, Pk, Z, K, R, chunked, nbcov=1,
+                     n_pep):
+    """Peak-major preliminary count. Returns (vals [R, K], cand [R, K],
+    matched_total [R], scored [R]), all i32: views of
+    :func:`_device_open_count`'s packed rows."""
+    packed = _open_count_packed(
+        frag_pep8, starts, lens, row_spec, row_i0, row_i1, row_maxz, F=F,
+        Wc=Wc, Pk=Pk, Z=Z, chunked=chunked, nbcov=nbcov, n_pep=n_pep, K=K)
+    return (packed[:, :K], packed[:, K:2 * K], packed[:, 2 * K],
+            packed[:, 2 * K + 1])
 
 
 def _device_open_count(frag_pep8, starts, lens, row_spec, row_i0, row_i1,
                        row_maxz, *, F, Wc, Pk, Z, K, R, chunked, nbcov=1,
                        n_pep):
-    """:func:`_open_count_core` in the fused merge's i32 [R, 2K+2]
-    layout (vals, cand, matched_total, scored)."""
-    vals, cand, mtot, scored = _open_count_core(
-        frag_pep8, starts, lens, row_spec, row_i0, row_i1, row_maxz,
-        F=F, Wc=Wc, Pk=Pk, Z=Z, K=K, R=R, chunked=chunked, nbcov=nbcov,
-        n_pep=n_pep,
-    )
-    return torch.cat([vals, cand, mtot[:, None], scored[:, None]], dim=1)
+    """The peak-major preliminary count in the fused merge's i32
+    [R, 2K+2] layout (vals, cand, matched_total, scored)."""
+    return _open_count_packed(
+        frag_pep8, starts, lens, row_spec, row_i0, row_i1, row_maxz, F=F,
+        Wc=Wc, Pk=Pk, Z=Z, chunked=chunked, nbcov=nbcov, n_pep=n_pep, K=K)
+
+
+def range_tables(frag_mz, band_off, device):
+    """Device tables of the range search for masses ``frag_mz`` sorted by
+    (band, m/z), band b holding [band_off[b], band_off[b + 1]): a
+    band-aligned 64-lane copy of the masses (+inf padded, one all-inf
+    guard row), the per-band 64x decimation viewed as [nb, DEC2, 64]
+    groups with their 4096x decimation (each group's last value), and the
+    per-band row offsets, lengths, flat offsets and first/last masses.
+    The kernel reads the copy, offsets, lengths and first/last masses;
+    the plain probe reads the decimations too."""
+    off = np.asarray(band_off, np.int64)
+    nb = off.size - 1
+    lens_b = np.diff(off)
+    rows_b = -(-lens_b // 64)
+    row_off = np.concatenate([[0], np.cumsum(rows_b)]).astype(np.int64)
+    R64 = int(row_off[-1]) + 1  # +1 all-inf guard row
+    mz64 = np.full((R64, 64), np.inf, np.float32)
+    dec_n = max(int(rows_b.max(initial=1)), 1)
+    DEC2 = -(-dec_n // 64)
+    dec = np.full((nb, DEC2 * 64), np.inf, np.float32)
+    for b in range(nb):
+        seg = frag_mz[off[b]: off[b + 1]]
+        r0, r1 = row_off[b], row_off[b + 1]
+        flat = mz64[r0:r1].reshape(-1)
+        flat[: seg.size] = seg
+        mz64[r0:r1] = flat.reshape(-1, 64)
+        dec[b, : rows_b[b]] = mz64[r0:r1, 63]
+    decg = dec.reshape(nb, DEC2, 64)
+    bfirst = np.full(nb, np.inf, np.float32)
+    blast = np.full(nb, -np.inf, np.float32)
+    ne = lens_b > 0
+    bfirst[ne] = frag_mz[off[:-1][ne]]
+    blast[ne] = frag_mz[off[1:][ne] - 1]
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return (dev(mz64), dev(decg), dev(decg[:, :, 63]), dev(row_off[:-1]),
+            dev(lens_b.astype(np.int64)), dev(off[:-1].astype(np.int64)),
+            dev(bfirst), dev(blast))
 
 
 class OpenSearcher:
@@ -663,46 +961,11 @@ class OpenSearcher:
         return ci
 
     def _dev_ranges_tables(self):
-        """Device tables of the range probe, built once: a band-aligned
-        64-lane copy of the sorted masses (+inf padded, one all-inf guard
-        row), the per-band 64x decimation viewed as [nb, DEC2, 64] groups
-        with their 4096x decimation (each group's last value), and the
-        per-band row offsets, lengths, flat offsets and first/last
-        masses."""
-        if self._dev_rng is not None:
-            return self._dev_rng
-        nb = self.n_bands
-        off = self.band_off
-        lens_b = np.diff(off)
-        rows_b = -(-lens_b // 64)
-        row_off = np.concatenate([[0], np.cumsum(rows_b)]).astype(np.int64)
-        R64 = int(row_off[-1]) + 1  # +1 all-inf guard row
-        mz64 = np.full((R64, 64), np.inf, np.float32)
-        dec_n = max(int(rows_b.max(initial=1)), 1)
-        DEC2 = -(-dec_n // 64)
-        dec = np.full((nb, DEC2 * 64), np.inf, np.float32)
-        for b in range(nb):
-            seg = self.frag_mz[off[b]: off[b + 1]]
-            r0, r1 = row_off[b], row_off[b + 1]
-            flat = mz64[r0:r1].reshape(-1)
-            flat[: seg.size] = seg
-            mz64[r0:r1] = flat.reshape(-1, 64)
-            dec[b, : rows_b[b]] = mz64[r0:r1, 63]
-        decg = dec.reshape(nb, DEC2, 64)
-        bfirst = np.full(nb, np.inf, np.float32)
-        blast = np.full(nb, -np.inf, np.float32)
-        ne = lens_b > 0
-        bfirst[ne] = self.frag_mz[off[:-1][ne]]
-        blast[ne] = self.frag_mz[off[1:][ne] - 1]
-
-        def dev(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-
-        self._dev_rng = (
-            dev(mz64), dev(decg), dev(decg[:, :, 63]), dev(row_off[:-1]),
-            dev(lens_b.astype(np.int64)), dev(off[:-1].astype(np.int64)),
-            dev(bfirst), dev(blast),
-        )
+        """The device tables of the range search (:func:`range_tables`),
+        built once."""
+        if self._dev_rng is None:
+            self._dev_rng = range_tables(self.frag_mz, self.band_off,
+                                         self.device)
         return self._dev_rng
 
     def _tol(self):
@@ -739,6 +1002,18 @@ class OpenSearcher:
             dev(slot_spec, np.int64), dev(slot_band, np.int64),
             dev(slot_valid, bool), Zb=Zb, tol=self._tol(),
         )
+
+    def planning_ranges(self, masses: np.ndarray, Zb: int, u0, u1):
+        """The host planning's (starts, lens), laid out and valued as
+        :meth:`ranges`: on a card the range search kernel computes them
+        from the uploaded masses (:meth:`ranges_device`) and they are
+        fetched; on the CPU :meth:`ranges` searches on the host."""
+        if self.device.type != "cuda":
+            return self.ranges(masses, Zb, u0, u1)
+        peaks = torch.from_numpy(
+            np.ascontiguousarray(masses, np.float32)[None]).to(self.device)
+        st, ln, _ = self.ranges_device(peaks, u0, u1, Zb)
+        return st.cpu().numpy(), ln.cpu().numpy()
 
     def ranges(
         self, masses: np.ndarray, Zb: int,
@@ -795,7 +1070,7 @@ class OpenSearcher:
         B, Pk = masses.shape
         if _ranges is None:
             u0, u1 = spectrum_window_union(rows, B)
-            starts, lens = self.ranges(masses, Zb, u0, u1)
+            starts, lens = self.planning_ranges(masses, Zb, u0, u1)
         else:
             starts, lens = _ranges
         nbcov = starts.shape[1] // max(Zb * Pk, 1)

@@ -50,8 +50,10 @@ from ..index.builder import IndexedDatabase, next_power_of_two
 from ..ops.open_search import (
     V_ROW,
     OpenSearcher,
+    _device_ranges,
     _open_count_core,
     _quarter_octave,
+    range_tables,
 )
 from ..ops.pallas_stage1 import stage1_counts
 from ..ops.search import (
@@ -249,6 +251,7 @@ class ShardedSearch:
         self.Z = Z
         self.K = K
         self._open_tbl = None
+        self._open_rng = {}  # model shard -> its range-search tables
         # the most live items one shard rescored in the last stage 2
         # (pmax over the shards)
         self.last_live = 0
@@ -448,11 +451,16 @@ class ShardedSearch:
         return self._open_tbl
 
     def open_ranges(self, masses):
-        """Host planning: per (shard, spectrum, z, peak) in-tolerance
+        """Planning: per (shard, spectrum, z, peak) in-tolerance
         fragment ranges over each shard's m/z-sorted segment, the f32
         window semantics of ``OpenSearcher.ranges``. masses: [B, Pk]
-        (+inf padded). Returns (starts, lens) i32 [M, B, Z*Pk]."""
+        (+inf padded). Returns (starts, lens) i32 [M, B, Z*Pk], host
+        arrays: on a card computed by the range search kernel on each
+        shard's first device and fetched, on the CPU searched on the
+        host."""
         _, segs, _ = self._open_tables()
+        if torch.device(self.mesh.devices[0][0]).type == "cuda":
+            return self._open_ranges_card(masses, segs)
         M = len(segs)
         B, Pk = masses.shape
         Z = self.Z
@@ -476,6 +484,30 @@ class ShardedSearch:
                     e[hit] = np.searchsorted(seg, hi[hit], side="right")
                 starts[m, :, col] = s.astype(np.int32)
                 lens[m, :, col] = np.maximum(e - s, 0).astype(np.int32)
+        return starts, lens
+
+    def _open_ranges_card(self, masses, segs):
+        """:meth:`open_ranges` by the range search kernel: each shard's
+        segment is one band of its own tables (built once, on the
+        shard's device in the first data row)."""
+        B, Pk = masses.shape
+        starts = np.zeros((len(segs), B, self.Z * Pk), np.int32)
+        lens = np.zeros_like(starts)
+        for m, seg in enumerate(segs):
+            dev = torch.device(self.mesh.devices[0][m])
+            tabs = self._open_rng.get(m)
+            if tabs is None:
+                tabs = self._open_rng[m] = range_tables(
+                    seg, np.array([0, seg.size], np.int64), dev)
+            peaks = torch.from_numpy(
+                np.ascontiguousarray(masses, np.float32)[None]).to(dev)
+            st, ln = _device_ranges(
+                tabs, peaks, torch.zeros((B, 1), dtype=torch.int64,
+                                         device=dev),
+                torch.ones((B, 1), dtype=torch.bool, device=dev),
+                Zb=self.Z, tol=self._tol)
+            starts[m] = st.cpu().numpy()
+            lens[m] = ln.cpu().numpy()
         return starts, lens
 
     def open_F(self, lens) -> int:

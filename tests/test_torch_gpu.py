@@ -22,10 +22,13 @@ from sage_tpu_torch.bench_baseline import synth_fasta, synth_spectra
 from sage_tpu_torch.chem.fasta import Fasta
 from sage_tpu_torch.chem.mass import Tolerance
 from sage_tpu_torch.index.builder import DatabaseParams
+from sage_tpu_torch.ops import narrow_banded as tbanded
+from sage_tpu_torch.ops import open_search as topen
 from sage_tpu_torch.ops import pallas_sort, pallas_stage1
 from sage_tpu_torch.ops import rescore as trescore
 from sage_tpu_torch.ops.search import Scorer, SearchParams
 
+import _peak_cases as pc
 from _rescore_cases import (CARD_SHAPES, RANDOM, indexed_case, kernel_cases,
                             large_peak_arrays, shape_case)
 
@@ -659,4 +662,207 @@ def test_scorer_at_12000_peaks_card_matches_cpu(cuda, small, monkeypatch,
     assert pallas_stage1.launches > before[0]
     assert trescore.launches > before[1]
     t_cpu = Scorer(db, params, device="cpu").score_table(spectra)
+    _assert_same([t_gpu], [t_cpu])
+
+
+# ---- the peak-major searches' kernels ---------------------------------------
+
+_PEAK_TOLS = {"ppm": ("ppm", -10.0, 10.0), "pct": ("pct", -0.001, 0.002),
+              "da": ("da", -0.02, 0.02)}
+
+
+def _one_launch(name, fn):
+    """Call ``fn`` and check that it launched kernel ``name`` once."""
+    before = topen.launches[name]
+    out = fn()
+    torch.cuda.synchronize()
+    assert topen.launches[name] == before + 1, name
+    return out
+
+
+@pytest.mark.parametrize("form", ["grid", "slots", "banded"])
+@pytest.mark.parametrize("Zb", [1, 3])
+@pytest.mark.parametrize("tol", sorted(_PEAK_TOLS))
+def test_peak_ranges_kernel_matches_plain(cuda, tol, Zb, form):
+    """csrc/peak_ranges.cu, both forms, against its plain versions on the
+    card: peaks whose fragments lie on their IEEE bounds and one ulp
+    either side, NaN, -inf, 0 and +inf pads, invalid slots, an empty band;
+    starts and lengths equal (i32)."""
+    t = _PEAK_TOLS[tol]
+    frag_mz, off, cs = pc.range_masses(t, seed=Zb)
+    nb = off.size - 1
+    B, Pk = 7, 16
+    masses = pc.range_peaks(cs, B, Pk, seed=Zb)
+    rng = np.random.default_rng(Zb)
+    peaks = torch.from_numpy(np.stack([masses, np.ones_like(masses)])).to(
+        cuda)
+    if form == "banded":
+        nbcov = 3
+        bands = np.clip(rng.integers(0, nb, B)[:, None] + np.arange(nbcov),
+                        0, nb - 1)
+        valid = rng.random((B, nbcov)) < 0.8
+        bb = np.zeros((B, nbcov, 2), np.int32)
+        bb[:, :, 0] = off[bands]
+        bb[:, :, 1] = np.where(valid, off[bands + 1], off[bands])
+        args = (torch.from_numpy(frag_mz).to(cuda), peaks[0],
+                torch.from_numpy(bb).to(cuda))
+        kw = dict(Zb=Zb, tol=t, nstep=int(np.ceil(np.log2(
+            np.diff(off).max()))) + 2)
+        got = _one_launch("peak_ranges",
+                          lambda: tbanded._banded_ranges(*args, **kw))
+        want = tbanded._banded_ranges_plain(*args, **kw)
+    else:
+        tabs = pc.open_range_tables(topen, frag_mz, off, cuda)
+        if form == "grid":
+            band = torch.from_numpy(rng.integers(0, nb, (B, 3))).to(cuda)
+            valid = torch.from_numpy(rng.random((B, 3)) < 0.8).to(cuda)
+            args = (tabs, peaks, band, valid)
+            run, plain = topen._device_ranges, topen._device_ranges_plain
+        else:
+            NS = 11
+            args = (tabs, peaks,
+                    torch.from_numpy(rng.integers(0, B, NS)).to(cuda),
+                    torch.from_numpy(rng.integers(0, nb, NS)).to(cuda),
+                    torch.from_numpy(rng.random(NS) < 0.8).to(cuda))
+            run = topen._device_ranges_flat
+            plain = topen._device_ranges_flat_plain
+        got = _one_launch("peak_ranges", lambda: run(*args, Zb=Zb, tol=t))
+        want = plain(*args, Zb=Zb, tol=t)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int(want[1].sum()) > 0
+
+
+@pytest.mark.parametrize("overflow", [False, True], ids=["fits", "overflow"])
+@pytest.mark.parametrize("packed", [True, False], ids=["packed", "neg"])
+@pytest.mark.parametrize("nbcov", [1, 3])
+@pytest.mark.parametrize("Z", [1, 3])
+@pytest.mark.parametrize("chunked", [False, True], ids=["flat", "chunked"])
+def test_open_entries_kernel_matches_plain(cuda, chunked, Z, nbcov, packed,
+                                           overflow):
+    """csrc/open_entries.cu against its plain version on the card: every
+    key and tag equal, rows past F (or Wc table rows) included."""
+    Pk, F, Wc = 8, 384, 8
+    pep, starts, lens = pc.entries_case(
+        Z * 10 + nbcov, B=5, nbcov=nbcov, Z=Z, Pk=Pk, chunked=chunked, F=F,
+        Wc=Wc, overflow=overflow)
+    args = [torch.from_numpy(a).to(cuda)
+            for a in (pep.reshape(-1, 64), starts, lens)]
+    kw = dict(F=F, Wc=Wc, Pk=Pk, Z=Z, nbcov=nbcov, chunked=chunked,
+              packed=packed)
+    got = _one_launch("open_entries", lambda: topen.open_entries(*args, **kw))
+    want = topen.open_entries_plain(*args, **kw)
+    assert torch.equal(got[0], want[0])
+    assert (got[1] is None) == (want[1] is None)
+    assert got[1] is None or torch.equal(got[1], want[1])
+
+
+def _count_on_card(cuda, case, **kw):
+    rows, zs, spec, i0, i1, maxz = case
+    args = [torch.from_numpy(a).to(cuda) for a in (rows,)] + [
+        None if zs is None else torch.from_numpy(zs).to(cuda)] + [
+        torch.from_numpy(a).to(cuda) for a in (spec, i0, i1, maxz)]
+    got = _one_launch("open_count", lambda: topen.open_count(*args, **kw))
+    want = topen.open_count_plain(*args, **kw)
+    assert torch.equal(got, want)
+    return want
+
+
+@pytest.mark.parametrize("K", [50, 80])
+@pytest.mark.parametrize("packed", [True, False], ids=["packed", "neg"])
+@pytest.mark.parametrize("nbcov", [1, 4])
+@pytest.mark.parametrize("Z", [1, 3])
+def test_open_count_kernel_matches_plain(cuda, Z, nbcov, packed, K):
+    """csrc/open_count.cu against its plain version on the card (both sort
+    branches' keys): ties, padding rows, a row cut at F, an empty row,
+    every-band ranges, K 50 and 80; the [R, 2K+2] rows equal."""
+    F, W = 512, 640
+    case = pc.count_case(Z + 7 * nbcov + K, B=6, nbcov=nbcov, F=F, W=W, Z=Z,
+                         packed=packed, R=40, max_run=3)
+    want = _count_on_card(cuda, case, F=F, K=K, nbcov=nbcov, Z=Z,
+                          packed=packed)
+    assert int((want[:, K - 1] > 0).sum()) > 0
+
+
+@pytest.mark.parametrize("K", [50, 1024])
+def test_open_count_kernel_compacts(cuda, K):
+    """Rows of 12,000 runs in one query row's window: the kernel's top-K
+    buffer (4096 keys) fills and compacts several times; equal to the
+    plain version, for K 50 and the kernel's largest K."""
+    F = W = 16384
+    case = pc.count_case(5, B=3, nbcov=1, F=F, W=W, Z=1, packed=True, R=6,
+                         band_w=20000, max_run=1)
+    rows, zs, spec, i0, i1, maxz = case
+    i0[:], i1[:] = 0, 20000
+    spec[:] = [0, 2] * 3  # pseudo-row 1 holds no entries
+    want = _count_on_card(cuda, (rows, zs, spec, i0, i1, maxz), F=F, K=K,
+                          nbcov=1, Z=1, packed=True)
+    assert int(want[:, 2 * K + 1].min()) > 4096
+
+
+def _peak_launches():
+    return dict(topen.launches)
+
+
+# the card paths of the three kernels: (environment, plan key)
+_PEAK_PATHS = {
+    "open": ({"SAGE_TPU_OPEN_THRESHOLD": "1"}, "open"),
+    "open_two_dispatch": ({"SAGE_TPU_OPEN_THRESHOLD": "1",
+                           "SAGE_TPU_FUSED": "0"}, None),
+    "open_torch_sort": ({"SAGE_TPU_OPEN_THRESHOLD": "1"}, "open"),
+    "banded": ({"SAGE_TPU_NARROW_BANDED": "1",
+                "SAGE_TPU_NARROW_BAND_W": "64"}, "banded"),
+}
+
+
+@pytest.mark.parametrize("path", sorted(_PEAK_PATHS))
+def test_peak_paths_launch_kernels(cuda, small, monkeypatch, path):
+    """The open search (fused and two-dispatch, and with every entry row
+    sorted by torch.sort) and the banded narrow stage 1 on the card run
+    all three kernels (the launch counters grow) and give every
+    FeatureTable column of the CPU."""
+    db, spectra = small
+    env, kind = _PEAK_PATHS[path]
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    if path == "open_torch_sort":
+        monkeypatch.setattr(topen, "use_pallas_sort", lambda F, n: False)
+    if kind != "banded":
+        params = SearchParams(
+            precursor_tol=Tolerance("da", -500.0, 100.0),
+            fragment_tol=Tolerance("ppm", -10.0, 10.0), report_psms=2)
+    else:
+        params = _params(("ppm", -10.0, 10.0))
+    tables = {}
+    for dev in (cuda, torch.device("cpu")):
+        before = _peak_launches()
+        s = Scorer(db, params, device=dev)
+        tables[dev.type] = list(s.score_stream([spectra[:96],
+                                                spectra[96:192]]))
+        grew = {k: topen.launches[k] - before[k] for k in before}
+        assert kind is None or s.last_plan.get(kind)
+        if dev.type == "cuda":
+            assert all(n > 0 for n in grew.values()), grew
+        else:
+            assert not any(grew.values()), grew
+    _assert_same(tables["cuda"], tables["cpu"])
+
+
+def test_grid_open_launches_kernels(cuda, small, monkeypatch):
+    """The grid's banded open step on four shards of the one card runs
+    the range search (its planning), the entry gather and the count
+    kernels, and gives every FeatureTable column of the CPU."""
+    from sage_tpu_torch.parallel import sharding
+
+    db, spectra = small
+    monkeypatch.setenv("SAGE_TPU_SHARD_WINDOWED", "0")
+    monkeypatch.setenv("SAGE_TPU_SHARD_OPEN", "1")
+    params = _params(("ppm", -10.0, 10.0))
+    mesh = sharding.make_mesh(2, 2, devices=[cuda] * 4)
+    sc = sharding.ShardedScorer(db, mesh, params)
+    before = _peak_launches()
+    t_gpu = sc.score_table(spectra[:96])
+    torch.cuda.synchronize()
+    assert sc.last_route[0] == "open"
+    assert all(topen.launches[k] > before[k] for k in before), before
+    t_cpu = Scorer(db, params, device="cpu").score_table(spectra[:96])
     _assert_same([t_gpu], [t_cpu])

@@ -26,6 +26,7 @@ import sage_tpu_torch.ops.narrow_banded as tbanded
 import sage_tpu_torch.ops.pallas_sort as tsort
 import sage_tpu_torch.ops.search as tsearch
 import sage_tpu_torch.spectrum.processor as tproc
+import _peak_cases as pc
 from test_torch_search import _build, _params, _spectra, assert_tables_equal
 
 AA = np.frombuffer(b"ACDEFGHIKLMNPQRSTVWY", dtype=np.uint8)
@@ -260,3 +261,47 @@ def test_banded_auto_gate(setup, monkeypatch, case):
     if want_t:
         assert isinstance(got_t, tbanded.NarrowBanded)
         assert got_t.frag_mz_dev.device.type == "cpu"
+
+
+# ---- the card kernel's algorithm against the plain version -----------------
+
+BANDED_TOLS = {"ppm": ("ppm", -10.0, 10.0), "pct": ("pct", -0.001, 0.002),
+               "da": ("da", -0.5, 0.5)}
+
+
+@pytest.mark.parametrize("nstep", ["full", "short"])
+@pytest.mark.parametrize("Zb", [1, 3])
+@pytest.mark.parametrize("tol", sorted(BANDED_TOLS))
+def test_banded_ranges_model(tol, Zb, nstep):
+    """csrc/peak_ranges.cu's banded form (the plain version's bounded
+    search run literally, one element a thread, bounds computed in
+    place) equals the plain ``_bounded_search`` ranges: starts at NaN,
+    -inf and +inf peaks where only the length is masked, empty segments
+    (an empty band, invalid slots), fragments exactly on the IEEE bounds
+    and one ulp either side, runs of equal masses; ``short`` gives fewer
+    steps than the segments need, which both follow step for step."""
+    t = BANDED_TOLS[tol]
+    frag_mz, off, cs = pc.range_masses(t, seed=Zb + 3)
+    nb = off.size - 1
+    B, Pk, nbcov = 6, 16, 3
+    masses = pc.range_peaks(cs, B, Pk, seed=Zb + 3)
+    rng = np.random.default_rng(Zb)
+    bands = np.clip(rng.integers(0, nb, B)[:, None] + np.arange(nbcov), 0,
+                    nb - 1)
+    valid = rng.random((B, nbcov)) < 0.8
+    bb = np.zeros((B, nbcov, 2), np.int32)
+    bb[:, :, 0] = off[bands]
+    bb[:, :, 1] = np.where(valid, off[bands + 1], off[bands])
+    n_step = (int(np.ceil(np.log2(np.diff(off).max()))) + 2
+              if nstep == "full" else 4)
+    kw = dict(Zb=Zb, tol=t, nstep=n_step)
+    st, ln = tbanded._banded_ranges(torch.from_numpy(frag_mz),
+                                    torch.from_numpy(masses),
+                                    torch.from_numpy(bb), **kw)
+    w_st, w_ln = pc.model_banded_ranges(frag_mz, masses, bb, **kw)
+    np.testing.assert_array_equal(st.numpy(), w_st)
+    np.testing.assert_array_equal(ln.numpy(), w_ln)
+    assert w_ln.sum() > 0
+    # a non-finite peak keeps its searched start, with no length
+    bad = ~np.isfinite(np.tile(masses, (1, Zb * nbcov)))
+    assert (w_ln[bad] == 0).all() and (w_st[bad] > 0).any()

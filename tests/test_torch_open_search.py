@@ -28,6 +28,7 @@ import sage_tpu_torch.index.builder as tbuilder
 import sage_tpu_torch.ops.open_search as topen
 import sage_tpu_torch.ops.search as tsearch
 import sage_tpu_torch.spectrum.processor as tproc
+import _peak_cases as pc
 from test_torch_search import _build, _params, _spectra, assert_tables_equal
 
 AA = np.frombuffer(b"ACDEFGHIKLMNPQRSTVWY", dtype=np.uint8)
@@ -388,3 +389,169 @@ def test_open_searcher_state_matches_sage_tpu(dbs, monkeypatch):
     assert to._sticky_shapes == jo._sticky_shapes
     assert len(to._sticky_shapes["classes"]) >= 2
 
+
+
+# ---- the card kernels' algorithms against the plain versions ---------------
+# Numpy models of csrc/peak_ranges.cu (open form), csrc/open_entries.cu and
+# csrc/open_count.cu (tests/_peak_cases.py) at the edges each kernel has to
+# get right; exact equality, no tolerance. The card tests hold the kernels
+# themselves against the plain versions on the same generators.
+
+RANGE_TOLS = {"ppm": ("ppm", -10.0, 10.0), "pct": ("pct", -0.001, 0.002),
+              "da": ("da", -0.02, 0.02)}
+
+
+@pytest.mark.parametrize("form", ["grid", "slots"])
+@pytest.mark.parametrize("Zb", [1, 3])
+@pytest.mark.parametrize("tol", sorted(RANGE_TOLS))
+def test_peak_ranges_open_model(tol, Zb, form):
+    """The open range search's binary searches (lower and upper bound over
+    the band's masses, the span shortcut, invalid slots, an empty band)
+    equal the plain three-level probe, with peaks at centres whose
+    fragments lie exactly on their IEEE bounds and one ulp either side
+    (at z = 1 and z = 2), NaN, -inf, 0 and +inf pads."""
+    t = RANGE_TOLS[tol]
+    frag_mz, off, cs = pc.range_masses(t, seed=Zb)
+    tabs = pc.open_range_tables(topen, frag_mz, off, "cpu")
+    B, Pk = 7, 16
+    masses = pc.range_peaks(cs, B, Pk, seed=Zb)
+    peaks = torch.from_numpy(np.stack([masses, np.ones_like(masses)]))
+    nb = off.size - 1
+    rng = np.random.default_rng(Zb)
+    if form == "grid":
+        nbcov = 3
+        band = rng.integers(0, nb, (B, nbcov))
+        valid = rng.random((B, nbcov)) < 0.8
+        want = pc.model_open_ranges(tabs, masses, band.reshape(-1),
+                                    valid.reshape(-1), nsub=nbcov, Zb=Zb,
+                                    tol=t)
+        got = topen._device_ranges(tabs, peaks, torch.from_numpy(band),
+                                   torch.from_numpy(valid), Zb=Zb, tol=t)
+    else:
+        NS = 11
+        spec = rng.integers(0, B, NS)
+        band = rng.integers(0, nb, NS)
+        valid = rng.random(NS) < 0.8
+        want = pc.model_open_ranges(tabs, masses, band, valid, nsub=1,
+                                    Zb=Zb, tol=t, spec=spec)
+        got = topen._device_ranges_flat(
+            tabs, peaks, torch.from_numpy(spec), torch.from_numpy(band),
+            torch.from_numpy(valid), Zb=Zb, tol=t)
+    np.testing.assert_array_equal(got[0].numpy(), want[0])
+    np.testing.assert_array_equal(got[1].numpy(), want[1])
+    assert want[1].sum() > 0 and (want[1] == 0).any()
+
+
+@pytest.mark.parametrize("overflow", [False, True], ids=["fits", "overflow"])
+@pytest.mark.parametrize("packed", [True, False], ids=["packed", "neg"])
+@pytest.mark.parametrize("nbcov", [1, 3])
+@pytest.mark.parametrize("Z", [1, 3])
+@pytest.mark.parametrize("chunked", [False, True], ids=["flat", "chunked"])
+def test_open_entries_model(chunked, Z, nbcov, packed, overflow):
+    """The entry gather's scan and per-element window search write the
+    plain version's rows element for element (keys and tags), empty
+    windows, shared table rows and -1 pads included, and rows whose total
+    passes F (or Wc table rows): the same truncation, entry F - 1 of the
+    flat layout read through the last window as the plain version's
+    clipped marks make it."""
+    Pk, F, Wc = 8, 384, 8
+    pep, starts, lens = pc.entries_case(
+        Z * 10 + nbcov, B=5, nbcov=nbcov, Z=Z, Pk=Pk, chunked=chunked, F=F,
+        Wc=Wc, overflow=overflow)
+    kw = dict(F=F, Wc=Wc, Pk=Pk, Z=Z, nbcov=nbcov, chunked=chunked,
+              packed=packed)
+    keys, tags = topen.open_entries(
+        torch.from_numpy(pep.reshape(-1, 64)), torch.from_numpy(starts),
+        torch.from_numpy(lens), **kw)
+    w_keys, w_tags = pc.model_entries(pep, starts, lens, **kw)
+    np.testing.assert_array_equal(keys.numpy(), w_keys)
+    assert (tags is None) == (w_tags is None)
+    if tags is not None:
+        np.testing.assert_array_equal(tags.numpy(), w_tags)
+    live = (w_keys != (pc.INT32_MAX if packed else pc.NOPEP)).sum(axis=1)
+    assert live.max() > 0
+    W = Wc * 64 if chunked else F
+    # an overflowing row: more entries than its W columns hold
+    assert (lens[0].sum() > W) == overflow
+    assert live.max() >= W - 1 or not (overflow and not chunked)
+
+
+@pytest.mark.parametrize("cap", [None, "small"])
+@pytest.mark.parametrize("K", [50, 80])
+@pytest.mark.parametrize("packed", [True, False], ids=["packed", "neg"])
+@pytest.mark.parametrize("nbcov", [1, 4])
+@pytest.mark.parametrize("Z", [1, 3])
+def test_open_count_model(Z, nbcov, packed, K, cap):
+    """The run-count top-K's warp-wide searches (live end, [a, b)), run
+    walk and threshold buffer equal the plain version: ties in count
+    (runs of 1-6 entries), padding query rows, empty and every-band
+    precursor ranges, a row cut at F with live entries past it, an
+    all-empty row, K 50 and 80, one top-K over nbcov band pseudo-rows
+    against the plain version's per-band top-K and merge. ``small``
+    shrinks the model's buffer so that it compacts many times."""
+    F, W = 512, 640
+    rows, zs, spec, i0, i1, maxz = pc.count_case(
+        Z + 7 * nbcov + K, B=6, nbcov=nbcov, F=F, W=W, Z=Z, packed=packed,
+        R=40, max_run=3)
+    kw = dict(F=F, K=K, nbcov=nbcov, Z=Z, packed=packed)
+    got = topen.open_count(
+        torch.from_numpy(rows), None if zs is None else torch.from_numpy(zs),
+        *(torch.from_numpy(a) for a in (spec, i0, i1, maxz)), **kw).numpy()
+    mkw = dict(cap=K + 24, threads=16) if cap else {}
+    want = pc.model_count(rows, zs, spec, i0, i1, maxz, **kw, **mkw)
+    np.testing.assert_array_equal(got, want)
+    assert (want[:, K - 1] > 0).any()  # some rows fill their K
+    assert (want[:, 0] == 0).any() and (want[:, 0] > 0).any()
+    # ties: equal counts with different peptides in one row
+    v = want[:, :K]
+    assert ((v[:, 1:] == v[:, :-1]) & (v[:, 1:] > 0)).any()
+
+
+def test_warp_first_model():
+    """The count kernel's warp-wide search finds the first true position
+    of every monotone predicate on ranges of every length up to 3000."""
+    for n in list(range(0, 70)) + [1000, 1023, 1024, 1025, 2999]:
+        for t in {0, 1, n // 3, n - 1, n, n + 5}:
+            if 0 <= t <= n:
+                assert pc.warp_first(0, n, lambda j: j >= t) == t
+                assert pc.warp_first(3, n + 3,
+                                     lambda j: j >= t + 3) == t + 3
+
+
+@pytest.mark.parametrize("nbcov_gt1", [False, True], ids=["nbcov1", "nbcovN"])
+@pytest.mark.parametrize("Z", [1, 2])
+@pytest.mark.parametrize("chunked", [False, True], ids=["flat", "chunked"])
+def test_kernel_models_match_sage_tpu(dbs, monkeypatch, chunked, Z,
+                                      nbcov_gt1):
+    """The gather and count models, with a plain sort between them, give
+    sage_tpu's ``_device_open_count`` output on a real batch (the setup of
+    test_device_open_count_matches_sage_tpu)."""
+    jos, tos = _searchers(dbs, 4 if nbcov_gt1 else 1, monkeypatch, Z=Z)
+    arrays = _arrays(dbs[0], 16, 13, charge=None if Z > 1 else 2)
+    masses, intens, rows, u0, u1 = _batch_inputs(dbs, arrays, prec=OPEN)
+    st, ln = jos.ranges(masses, Z, u0, u1)
+    Pk = masses.shape[1]
+    nbcov = st.shape[1] // (Z * Pk)
+    monkeypatch.setenv("SAGE_TPU_OPEN_CHUNKED", "1" if chunked else "0")
+    _st, _ln, _pk, ch, _size, Wc, F, _nb = jos._geometry(masses, rows, Z,
+                                                         (st, ln))
+    n = rows["si"].size
+    R = 1 << max(n - 1, 7).bit_length()
+    spec = np.full(R, masses.shape[0], np.int32)
+    i0 = np.zeros(R, np.int32)
+    i1 = np.zeros(R, np.int32)
+    maxz = np.full(R, 2, np.int32)
+    spec[:n], i0[:n], i1[:n] = rows["si"], rows["i0"], rows["i1"]
+    maxz[:n] = np.maximum(rows["z"], 2)
+    want = np.asarray(jopen._device_open_count(
+        jos.frag_pep8_dev, *(jnp.asarray(a) for a in (st, ln, spec, i0, i1,
+                                                      maxz)),
+        F=F, Wc=Wc, Pk=Pk, Z=Z, K=50, R=R, chunked=ch, nbcov=nbcov,
+        psort=False))
+    keys, _ = pc.model_entries(np.asarray(jos.frag_pep8_dev), st, ln, F=F,
+                               Wc=Wc, Pk=Pk, Z=Z, nbcov=nbcov, chunked=ch,
+                               packed=True)
+    got = pc.model_count(np.sort(keys, axis=1), None, spec, i0, i1, maxz,
+                         F=F, K=50, nbcov=nbcov, Z=Z, packed=True)
+    np.testing.assert_array_equal(got, want)
+    assert (want[:, 0] > 0).sum() >= n // 2

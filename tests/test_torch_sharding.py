@@ -241,6 +241,26 @@ def test_open_regime_routes_banded(dbs):
     assert_tables_equal(got, jt)
 
 
+@pytest.mark.parametrize("shape", [(1, 2), (2, 4)])
+def test_open_ranges_card_form_matches_host(dbs, shape):
+    """The grid's range planning on a card (each model shard's segment
+    searched as one band by the range search's wrapper, whose plain
+    version runs on these CPU devices) equals the host planning, which
+    sage_tpu's ShardedScorer does: starts and lengths of every shard,
+    spectrum, charge plane and peak."""
+    arrays = _spectra_arrays(dbs[1], 12, [2, 3], seed=13, noise=4)
+    (_jp, _js), (tp, ts) = _both(dbs, arrays, prec=("da", -500.0, 100.0),
+                                 frag=("ppm", -15.0, 15.0))
+    sc = tshard.ShardedScorer(dbs[1], _mesh(shape), tp)
+    masses = tsearch.Scorer(dbs[1], tp, device="cpu")._pad_peaks(ts)[0]
+    search = sc.search
+    host = search.open_ranges(masses)
+    card = search._open_ranges_card(masses, search._open_tables()[1])
+    assert search.Z > 1 and host[1].sum() > 0
+    for h, c in zip(host, card):
+        np.testing.assert_array_equal(c, h)
+
+
 def test_stage2_budget_overflow(dbs, monkeypatch):
     """A batch whose live candidates overflow sage_tpu's stage-2 item
     budget (``_initial_bc`` forced to 2, so its step redoes at a larger

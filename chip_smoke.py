@@ -130,7 +130,10 @@ seconds):
 14. Two-dispatch open: phase 6's 4 x 512 spectra with SAGE_TPU_FUSED=0;
     the row-sort counter and the peak-major kernels' counters (its range
     planning runs the range search and fetches the ranges) must be > 0
-    and every column must equal phase 6's tables.
+    and every column must equal phase 6's tables. An untimed rerun of its
+    first batch keeps the peak-major kernels' inputs, each at the call
+    with the most band pseudo-rows a query row (nbcov up to 10), for
+    phase 27.
 15. Banded narrow stage 1: phase 3's spectra with a +-1.5 Da precursor
     window (W = 4096 on this database) and +-10 ppm fragments, the banded
     stage 1 asked for with SAGE_TPU_NARROW_BANDED=1. After a warm-up
@@ -211,8 +214,8 @@ seconds):
     count phase 26's two runs; the range search, entry gather and count:
     6, 14, 15, 16, 23). The cluster kernel's
     times are phase 16's; the peak-major kernels' main path is phase 6,
-    their times phase 27's at phase 7's input, with phases 15's and 16's
-    rows beside them (``by_input``); phase 7's lowered-limit run adds
+    their times phase 27's at phase 7's input, with phases 14's, 15's and
+    16's rows beside them (``by_input``); phase 7's lowered-limit run adds
     ``forced_launches``; the rescore kernel's main path is phase 3, its
     paths 3, 6, 11, 13-17 (15 and 16 banded), 20, 22-24 and 26, its
     times phase 25's at phase 3's input.
@@ -251,7 +254,8 @@ seconds):
     NaN and infinite peaks, empty bands and windows, rows past F, both
     key forms, K 50, 80 and 1024, a top-K buffer that compacts) and at
     the inputs kept on the main paths (phase 7's device-planned open
-    batch, phases 15's and 16's banded batches): outputs equal (i32). At
+    batch, phase 14's two-dispatch open batch, phases 15's and 16's banded
+    batches): outputs equal (i32). At
     each kept input timed with CUDA events around calls queued behind a
     spin kernel (a call's device work can be shorter than its host launch
     cost, which events around calls not held would time instead; that
@@ -266,6 +270,7 @@ A ``# record:`` line repeats the run's numbers as JSON.
 from __future__ import annotations
 
 import base64
+import contextlib
 import json
 import math
 import os
@@ -312,6 +317,16 @@ KERNELS = {
 }
 # the peak-major searches' kernels (ops/open_search.py's launch counters)
 PEAK_KERNELS = ("peak_ranges", "open_entries", "open_count")
+# The entry gather's and the count's kernel ms at phase 27's captured
+# inputs before their redesign (the gather with a window search an
+# entry, the count with a block a query row), measured by this script on
+# an NVIDIA H100 80GB HBM3 at 700 W: printed in the log beside this
+# run's, and in no JSON line
+PREVIOUS_PEAK_MS = {
+    "open_entries": {"open": 0.0414, "banded": 0.0955,
+                     "banded_lowres": 0.316},
+    "open_count": {"open": 0.106, "banded": 0.147, "banded_lowres": 0.268},
+}
 # The parent commit's whole long-row sort (its 2^15-key block sorts, the
 # flip passes in torch and the bitonic merge kernel), ms a batch,
 # measured by time_long_sort.py on an NVIDIA H100 80GB HBM3 at 700 W:
@@ -636,7 +651,7 @@ PEAK_KERNEL_KEYS = {"row_sort": "row_sort_kernel",
                     "rescore": "rescore_kernel",
                     "peak_ranges": "peak_ranges_",
                     "open_entries": "open_entries_kernel",
-                    "open_count": "open_count_kernel"}
+                    "open_count": "open_count_"}
 
 
 def open_profile_ranges(topen, tsearch):
@@ -661,22 +676,25 @@ class capture_peak:
     """Until the block ends, keep in ``store`` the first call's inputs of
     each of the peak-major kernels' wrappers, as (args, keywords): the
     first argument (a table, or the sorted rows) by reference, every
-    other tensor cloned."""
+    other tensor cloned. ``widest``: keep instead the first call with the
+    most band pseudo-rows a query row (keyword ``nbcov``)."""
 
-    def __init__(self, topen, tbanded, store):
+    def __init__(self, topen, tbanded, store, widest=False):
         targets = [(topen, "_device_ranges", "ranges"),
                    (topen, "_device_ranges_flat", "ranges_flat"),
                    (topen, "open_entries", "entries"),
                    (topen, "open_count", "count")]
         if tbanded is not None:
             targets.append((tbanded, "_banded_ranges", "banded_ranges"))
-        self.recs = [Recording(o, a, self.keep(store, key))
+        self.recs = [Recording(o, a, self.keep(store, key, widest))
                      for o, a, key in targets]
 
     @staticmethod
-    def keep(store, key):
+    def keep(store, key, widest):
         def keep(out, *a, **k):
-            if key not in store:
+            if key not in store or (
+                    widest and k.get("nbcov", 1)
+                    > store[key][1].get("nbcov", 1)):
                 store[key] = ((a[0],) + tuple(
                     x.clone() if hasattr(x, "clone") else x for x in a[1:]),
                     dict(k))
@@ -1977,7 +1995,8 @@ def sharded_runner_phase(torch, pallas_stage1, runner, search, tsv11, tmp,
 
 
 def two_dispatch_phase(torch, tsearch, name, db, fused, kernel, counts,
-                       times, open_search=False, capture=None):
+                       times, open_search=False, capture=None,
+                       peak_capture=None):
     """Phases 13 and 14: the batches of a fused main path, ``fused`` =
     (params, batches, tables), again with SAGE_TPU_FUSED=0; ``counts`` =
     (reset, read): ``read`` returns every launch counter the kernels line
@@ -1987,7 +2006,9 @@ def two_dispatch_phase(torch, tsearch, name, db, fused, kernel, counts,
     the wall rate and one batch's host phases. The open searcher's tables
     are built before the timed run, as phase 6 builds them. ``capture``:
     (dict, key) that takes the first batch's first rescore inputs, from
-    one more untimed run of that batch."""
+    one more untimed run of that batch; ``peak_capture``: (topen, dict)
+    that takes, from that run too, the peak-major kernels' inputs at
+    their widest nbcov, and the open searcher as ``searcher``."""
     params, batches, fused_tables = fused
     reset, read = counts
     sync = torch.cuda.synchronize
@@ -2034,9 +2055,18 @@ def two_dispatch_phase(torch, tsearch, name, db, fused, kernel, counts,
             scorer.score_table(batches[0])
             sync()
             ph["score_table_ms"] = (time.perf_counter() - t0) * 1e3
-            if capture:
-                # the first batch once more, untimed, for its rescore inputs
-                with capture_rescore(tsearch, *capture):
+            if capture or peak_capture:
+                # the first batch once more, untimed, for its rescore and
+                # peak-major kernels' inputs
+                with contextlib.ExitStack() as stack:
+                    if capture:
+                        stack.enter_context(capture_rescore(tsearch,
+                                                            *capture))
+                    if peak_capture:
+                        topen_, store = peak_capture
+                        store["searcher"] = scorer._open_searcher()
+                        stack.enter_context(capture_peak(topen_, None, store,
+                                                         widest=True))
                     scorer.score_table(batches[0])
                 sync()
         finally:
@@ -2648,10 +2678,14 @@ def peak_edge_checks(torch, topen, tbanded, dev):
     range search's three forms at three tolerance kinds and Z 1 and 3
     (fragments on the IEEE bounds, NaN, -inf, 0, +inf pads, invalid
     slots, an empty band); the gather's two layouts and two key forms at
-    Z 1 and 3, nbcov 1 and 3, rows that fit and rows past F; the count's
-    two key forms at Z 1 and 3, nbcov 1 and 4, K 50 and 80, and rows of
-    12,000 runs that fill and compact its top-K buffer (K 50 and
-    1024). Returns the number of inputs checked."""
+    Z 1 and 3, nbcov 1 and 3, rows that fit and rows past F, and at
+    12,000 peaks with Z 3 (its prefix in several tiles), its live counts
+    among its outputs; the count's two key forms at Z 1 and 3, nbcov 1
+    and 4, K 50 and 80, given the rows' live counts, runs longer than its
+    warp form's 32-position steps, and rows of 12,000
+    runs that fill and compact its top-K buffer (K 50 and 64 in its warp
+    form, 1024 in its block form). Returns the number of inputs
+    checked."""
     import itertools
 
     pc = peak_cases_module()
@@ -2699,19 +2733,40 @@ def peak_edge_checks(torch, topen, tbanded, dev):
         _equal_outputs(torch, topen.open_entries(*a, **kw),
                        topen.open_entries_plain(*a, **kw), kw)
         n += 1
+    rng = np.random.default_rng(12000)
+    pep = rng.integers(0, 50000, 1 << 16).astype(np.int32)
+    pep[-70:] = -1
+    st = rng.integers(0, pep.size - 80, (3, 3 * 2 * 12000)).astype(np.int32)
+    ln = ((rng.random(st.shape) < 0.02) * rng.integers(1, 4, st.shape)
+          ).astype(np.int32)
+    ln[0, :36000] = 1  # a row past F
+    for chunked, packed in itertools.product((False, True), (True, False)):
+        a = (on(pep.reshape(-1, 64)), on(st), on(ln))
+        kw = dict(F=4096, Wc=1024, Pk=12000, Z=3, nbcov=2, chunked=chunked,
+                  packed=packed)
+        _equal_outputs(torch, topen.open_entries(*a, **kw),
+                       topen.open_entries_plain(*a, **kw), kw)
+        n += 1
     cases = [dict(case=pc.count_case(Z + 7 * nbcov + K, B=6, nbcov=nbcov,
                                      F=512, W=640, Z=Z, packed=packed, R=40,
                                      max_run=3),
                   F=512, K=K, nbcov=nbcov, Z=Z, packed=packed)
              for Z, nbcov, packed, K in itertools.product(
                  (1, 3), (1, 4), (True, False), (50, 80))]
-    for K in (50, 1024):
-        rows, zs, spec, i0, i1, maxz = pc.count_case(
+    # runs longer than the warp form's 32-position steps
+    cases += [dict(case=pc.count_case(Z + 7 * nbcov, B=6, nbcov=nbcov,
+                                      F=512, W=640, Z=Z, packed=True, R=40,
+                                      max_run=40),
+                   F=512, K=50, nbcov=nbcov, Z=Z, packed=True)
+              for Z, nbcov in itertools.product((1, 3), (1, 4))]
+    for K in (50, 64, 1024):
+        case = pc.count_case(
             5, B=3, nbcov=1, F=16384, W=16384, Z=1, packed=True, R=6,
             band_w=20000, max_run=1)
+        rows, zs, live, spec, i0, i1, maxz = case
         i0[:], i1[:], spec[:] = 0, 20000, [0, 2] * 3
-        cases.append(dict(case=(rows, zs, spec, i0, i1, maxz), F=16384, K=K,
-                          nbcov=1, Z=1, packed=True))
+        cases.append(dict(case=case, F=16384, K=K, nbcov=1, Z=1,
+                          packed=True))
     for c in cases:
         rows, zs, *q = c.pop("case")
         a = (on(rows), None if zs is None else on(zs), *(on(x) for x in q))
@@ -2833,10 +2888,12 @@ def peak_phase(torch, topen, tbanded, captured, dev, times):
     range search, the library yardstick (:func:`ranges_work`), timed
     both ways. The
     gather's bytes: the windows' starts and lengths, the live entries'
-    peptide ids and the rows (and tags) written, each once; the count's:
-    the entries that count (every query row's matched total, summed), the
-    query rows and the [R, 2K+2] output, against two int32 operations an
-    entry. Returns the rows, kernel -> path -> row."""
+    peptide ids and the rows (and tags) and live counts written, each
+    once; the count's: the entries that count (every query row's matched
+    total, summed), the query rows, the live counts and the [R, 2K+2]
+    output, against two int32 operations an entry. The gather's and the
+    count's times before their redesign (``PREVIOUS_PEAK_MS``) are
+    printed beside in the log, and kept in no row. Returns the rows, kernel -> path -> row."""
     rows = {k: {} for k in PEAK_KERNELS}
     fns = {"ranges": ("peak_ranges", topen._device_ranges,
                       topen._device_ranges_plain, "grid"),
@@ -2868,11 +2925,12 @@ def peak_phase(torch, topen, tbanded, captured, dev, times):
                     bm, by = bound_ms(nbytes, ops, F32_COMPARES_PER_S)
                     what = f"{form} form, {out[0].numel()} elements"
                 elif name == "open_entries":
-                    keys, tags = out
+                    keys, tags, live_n = out
                     bad = 2**31 - 1 if kw["packed"] else 1 << 30  # no entry
                     live = int((keys != bad).sum())
+                    assert live == int(live_n.long().sum()), name
                     nbytes = (args[1].numel() * 8 + live * 4
-                              + keys.numel() * 4
+                              + keys.numel() * 4 + live_n.numel() * 4
                               + (0 if tags is None else tags.numel() * 4))
                     ops = 0.0
                     bm, by = bound_ms(nbytes, ops, INT32_OPS_PER_S)
@@ -2884,7 +2942,7 @@ def peak_phase(torch, topen, tbanded, captured, dev, times):
                     entries = float(out[:, 2 * K].long().sum())
                     per = 8 if (kw["Z"] > 1 and not kw["packed"]) else 4
                     nbytes = (entries * per + out.shape[0] * 16
-                              + out.numel() * 4)
+                              + args[2].numel() * 4 + out.numel() * 4)
                     ops = 2.0 * entries
                     bm, by = bound_ms(nbytes, ops, INT32_OPS_PER_S)
                     what = (f"{out.shape[0]} query rows, nbcov "
@@ -2900,6 +2958,9 @@ def peak_phase(torch, topen, tbanded, captured, dev, times):
                 lm = queued_device_ms(torch, library) if library else None
                 lib_call_ms = exec_ms(library, 10) if library else None
                 k_ms = (km1 + km2) / 2
+                prev = PREVIOUS_PEAK_MS.get(name, {}).get(path)
+                before = ("not measured at this input" if prev is None
+                          else f"{prev} ms")
                 row = dict(ms=k_ms, ms_runs=[km1, km2], call_ms=call_ms,
                            plain_ms=pm, bound_ms=bm, bound_by=by,
                            bound_share=bm / k_ms, bytes=nbytes, ops=ops,
@@ -2908,7 +2969,9 @@ def peak_phase(torch, topen, tbanded, captured, dev, times):
                 rows[name][path] = row
                 log(f"# {name} at {path} ({what}): equal to the plain "
                     f"version; kernel {km1:.4f} / {km2:.4f} ms (calls "
-                    f"queued behind a spin), {call_ms:.4f} ms a call not "
+                    f"queued behind a spin; before the redesign "
+                    f"{before}), {call_ms:.4f} "
+                    f"ms a call not "
                     f"held (the host's launch cost included), plain "
                     f"{pm:.3f} ms, library "
                     f"{'none' if lm is None else f'{lm:.4f} ms'} "
@@ -3407,7 +3470,8 @@ def main():
         rescore_in = {}
         # the peak-major kernels' inputs on the open and banded paths, for
         # phase 27
-        peak_in = {"open": {}, "banded": {}, "banded_lowres": {}}
+        peak_in = {"open": {}, "two_dispatch_open": {}, "banded": {},
+                   "banded_lowres": {}}
         narrow, k_stage1, narrow_fused = narrow_phases(
             torch, tsearch, pallas_stage1, db, spectra, dev, times,
             rescore_in)
@@ -3436,7 +3500,8 @@ def main():
         torch, tsearch, "14_two_dispatch_open", db, open_fused, "row_sort",
         (reset_sorts, lambda: {**pallas_sort.launches, **topen.launches,
                                "rescore": trescore.launches}),
-        times, open_search=True)
+        times, open_search=True,
+        peak_capture=(topen, peak_in["two_dispatch_open"]))
     assert all(td_open["launches_all"][k] > 0 for k in PEAK_KERNELS), (
         td_open["launches_all"])
 

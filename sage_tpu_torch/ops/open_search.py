@@ -29,8 +29,9 @@ bucketed index walk, database.rs:480-536 and scoring.rs:335-382):
    the row's precursor range [i0, i1) and fragment-charge bound, counted
    by run length, and the top-K (count desc, peptide desc) kept exactly:
    the PreScore tie rule (scoring.rs:43-49) (:func:`open_count`;
-   ``csrc/open_count.cu`` on the card, one block a query row walking
-   only its window's entries).
+   ``csrc/open_count.cu`` on the card, a warp a query row (a block past
+   K = 64) walking only its window's entries, the end of each row's live
+   prefix taken from the gather's live count).
 
 Every wrapper launches its kernel on a CUDA tensor and takes the plain
 version (torch ops, kept beside it) on a CPU tensor;
@@ -91,8 +92,8 @@ def _bind(name: str):
         },
         "open_entries": {"open_entries": [p, ll, p, p] + [i] * 8
                          + [p] * 4},
-        "open_count": {"open_count": [p, ll, p, ll] + [i] * 4 + [p] * 4
-                       + [i] * 3 + [p, p],
+        "open_count": {"open_count": [p, ll, p, ll, p] + [i] * 4
+                       + [p] * 4 + [i] * 3 + [p, p],
                        "open_count_max_k": []},
     }[name]
     for fn, args in sigs.items():
@@ -442,6 +443,12 @@ def _topk_counts(cnt, K):
     return (top >> 32).to(torch.int32), (Fax - 1) - (top & 0xFFFFFFFF)
 
 
+def _live_count(keys, packed):
+    """i32 [rows]: the keys of each row that hold an entry."""
+    empty = INT32_MAX if packed else _NOPEP
+    return (keys != empty).sum(dim=1, dtype=torch.int32)
+
+
 def open_entries_plain(frag_pep8, starts, lens, *, F, Wc, Pk, Z, nbcov,
                        chunked, packed):
     """The entry rows that the sort reads, one pseudo-row a (spectrum,
@@ -451,7 +458,9 @@ def open_entries_plain(frag_pep8, starts, lens, *, F, Wc, Pk, Z, nbcov,
     flatten). ``packed``: the sort kernels' key ((2^25 - pep) << 5) | z
     (2^25 - pep with Z == 1), INT32_MAX where there is no entry, and no
     tags; else -pep (2^30 where there is no entry) and, for Z > 1, i32
-    fragment-charge tags. Returns (keys, tags or None)."""
+    fragment-charge tags. Returns (keys, tags or None, live), live i32
+    [B*nbcov] each row's count of keys that hold an entry: the length of
+    the live prefix the sort leaves, which the count takes."""
     B = starts.shape[0]
     if nbcov > 1:
         BN = B * nbcov
@@ -466,20 +475,23 @@ def open_entries_plain(frag_pep8, starts, lens, *, F, Wc, Pk, Z, nbcov,
     else:
         neg, z_of = _entries_flat(frag_pep8, st, ln, F, Pk, Z)
     if not packed:
-        return neg, z_of
+        return neg, z_of, _live_count(neg, False)
     # the row-sort kernels: one i32 key per entry, the z tag packed into
     # the low 5 bits
     pep_e = torch.where(neg < _NOPEP, -neg, -1)
     valid_e = pep_e >= 0
     key = ((_PMAX - pep_e) if z_of is None
            else (((_PMAX - pep_e) << 5) | z_of))
-    return torch.where(valid_e, key, INT32_MAX).to(torch.int32), None
+    keys = torch.where(valid_e, key, INT32_MAX).to(torch.int32)
+    return keys, None, _live_count(keys, True)
 
 
 def open_entries(frag_pep8, starts, lens, *, F, Wc, Pk, Z, nbcov, chunked,
                  packed):
-    """:func:`open_entries_plain`'s rows: on a CUDA tensor one launch of
-    csrc/open_entries.cu, on a CPU tensor the plain version. The window
+    """:func:`open_entries_plain`'s rows, tags and live counts: on a CUDA
+    tensor one launch of csrc/open_entries.cu (a block a row, copying
+    unit by unit through an owner map), on a CPU tensor the plain
+    version. The window
     lengths are >= 0, as every range search gives them."""
     if starts.device.type == "cpu":
         return open_entries_plain(frag_pep8, starts, lens, F=F, Wc=Wc, Pk=Pk,
@@ -495,8 +507,12 @@ def open_entries(frag_pep8, starts, lens, *, F, Wc, Pk, Z, nbcov, chunked,
         (st.dim() == 2 and st.shape == ln.shape
          and st.shape[1] == Z * nbcov * Pk,
          f"ranges {tuple(st.shape)} for Z={Z}, nbcov={nbcov}, Pk={Pk}"),
-        (not chunked or pep.numel() % V_ROW == 0,
-         "the row-aligned gather needs whole 64-entry table rows"),
+        (0 < pep.numel() < 2**31, "the fragment-peptide table must hold "
+         "1 to 2^31 - 1 entries"),
+        (not chunked or (pep.numel() % V_ROW == 0
+                         and pep.data_ptr() % 16 == 0),
+         "the row-aligned gather needs whole, 16-byte aligned 64-entry "
+         "table rows"),
     )
     for ok, msg in checks:
         if not ok:
@@ -506,23 +522,30 @@ def open_entries(frag_pep8, starts, lens, *, F, Wc, Pk, Z, nbcov, chunked,
     W = Wc * V_ROW if chunked else F
     keys = torch.empty((BN, W), dtype=torch.int32, device=dev)
     tags = (torch.empty_like(keys) if not packed and Z > 1 else None)
-    scratch = torch.empty((BN, Z * Pk), dtype=torch.int64, device=dev)
+    # the kernel writes every row's count; rows of no columns launch none
+    live = (torch.empty if BN * W else torch.zeros)(BN, dtype=torch.int32,
+                                                    device=dev)
     if BN * W:
         _launch("open_entries", "open_entries", dev, pep.data_ptr(),
                 pep.numel(), st.data_ptr(), ln.data_ptr(), B, nbcov, Z, Pk,
-                int(chunked), Wc, F, int(packed), scratch.data_ptr(),
-                keys.data_ptr(), None if tags is None else tags.data_ptr())
-    return keys, tags
+                int(chunked), Wc, F, int(packed), keys.data_ptr(),
+                None if tags is None else tags.data_ptr(), live.data_ptr())
+    return keys, tags, live
 
 
-def open_count_plain(rows, z_sorted, row_spec, row_i0, row_i1, row_maxz, *,
-                     F, K, nbcov, Z, packed):
+def open_count_plain(rows, z_sorted, live, row_spec, row_i0, row_i1,
+                     row_maxz, *, F, K, nbcov, Z, packed):
     """Per query row: mask the sorted entry rows by the row's precursor
     range [i0, i1) and fragment-charge bound, count each peptide's run,
     keep the exact top-K in (count desc, peptide desc) order. ``rows``
     [BN, >= F] i32, sorted ascending, as :func:`open_entries` writes them
     (``packed``, or -pep keys with ``z_sorted`` [BN, F] tags for Z > 1),
-    cut to their first F columns here; ``row_spec`` [R] names each query
+    cut to their first F columns here; ``live`` [BN], each row's count of
+    keys that hold an entry (:func:`open_entries`'s), is what the kernel
+    takes for the end of a row's live prefix: the plain version reads
+    the entries from the keys themselves and raises if ``live`` differs
+    from their count, so every caller's count is checked wherever the
+    plain version runs. ``row_spec`` [R] names each query
     row's spectrum, whose pseudo-rows are spec*nbcov + slot. Returns the
     fused merge's i32 [R, 2K+2] layout (vals, cand, matched_total,
     scored).
@@ -536,6 +559,9 @@ def open_count_plain(rows, z_sorted, row_spec, row_i0, row_i1, row_maxz, *,
     BN = rows.shape[0]
     R = row_spec.shape[0]
     dev = rows.device
+    if not torch.equal(live.to(torch.int32), _live_count(rows, packed)):
+        raise ValueError("open_count: live counts differ from the rows' "
+                         "entries")
     x = rows[:, :F]
     if packed:
         valid_s = x != INT32_MAX
@@ -618,19 +644,22 @@ def open_count_plain(rows, z_sorted, row_spec, row_i0, row_i1, row_maxz, *,
     return torch.cat([vals, cand, mtot[:, None], scored[:, None]], dim=1)
 
 
-def open_count(rows, z_sorted, row_spec, row_i0, row_i1, row_maxz, *, F, K,
-               nbcov, Z, packed):
+def open_count(rows, z_sorted, live, row_spec, row_i0, row_i1, row_maxz, *,
+               F, K, nbcov, Z, packed):
     """:func:`open_count_plain`'s [R, 2K+2] output: on a CUDA tensor one
-    launch of csrc/open_count.cu (one block a query row, walking only
-    its window's entries), on a CPU tensor the plain version. Every
-    ``rows`` row must be sorted ascending, as the sorts leave it."""
+    launch of csrc/open_count.cu (a warp a query row for K <= 64, else a
+    block, each walking only its window's entries), on a CPU tensor the
+    plain version. Every ``rows`` row must be sorted ascending, as the
+    sorts leave it, and ``live`` must count its keys that hold an entry,
+    as :func:`open_entries` returns it."""
     if rows.device.type == "cpu":
-        return open_count_plain(rows, z_sorted, row_spec, row_i0, row_i1,
-                                row_maxz, F=F, K=K, nbcov=nbcov, Z=Z,
-                                packed=packed)
+        return open_count_plain(rows, z_sorted, live, row_spec, row_i0,
+                                row_i1, row_maxz, F=F, K=K, nbcov=nbcov,
+                                Z=Z, packed=packed)
     qs = [t.to(torch.int32).contiguous()
           for t in (row_spec, row_i0, row_i1, row_maxz)]
-    dev = _on_card("open_count", rows, *qs,
+    live = live.to(torch.int32).contiguous()
+    dev = _on_card("open_count", rows, live, *qs,
                    *(() if z_sorted is None else (z_sorted,)))
     BN = rows.shape[0]
     R = qs[0].shape[0]
@@ -644,6 +673,8 @@ def open_count(rows, z_sorted, row_spec, row_i0, row_i1, row_maxz, *, F, K,
             and z_sorted.stride(1) == 1 and z_sorted.shape[0] == BN),
          "-pep keys with Z > 1 need i32 charge tags beside them"),
         (all(q.shape == (R,) for q in qs), "query rows must be [R] each"),
+        (live.shape == (BN,), f"live counts {tuple(live.shape)} for "
+         f"{BN} rows"),
         (1 <= K <= _bind("open_count").open_count_max_k(),
          f"K={K} is past the kernel's top-K buffer"),
     )
@@ -656,7 +687,7 @@ def open_count(rows, z_sorted, row_spec, row_i0, row_i1, row_maxz, *, F, K,
         zs = z_sorted if (has_z and not packed) else None
         _launch("open_count", "open_count", dev, rows.data_ptr(),
                 rows.stride(0), None if zs is None else zs.data_ptr(),
-                0 if zs is None else zs.stride(0), BN, Fax,
+                0 if zs is None else zs.stride(0), live.data_ptr(), BN, Fax,
                 (1 if has_z else 0) if packed else 2, int(has_z),
                 *(q.data_ptr() for q in qs), R, nbcov, K, out.data_ptr())
     return out
@@ -671,22 +702,24 @@ def _open_count_packed(frag_pep8, starts, lens, row_spec, row_i0, row_i1,
     # that, or for peptide ids past its 25 bits, torch.sort sorts -pep
     # keys, as the JAX package takes lax.sort there
     packed = use_pallas_sort(W, n_pep)
-    keys, z_of = open_entries(frag_pep8, starts, lens, F=F, Wc=Wc, Pk=Pk,
-                              Z=Z, nbcov=nbcov, chunked=chunked,
-                              packed=packed)
+    keys, z_of, live = open_entries(frag_pep8, starts, lens, F=F, Wc=Wc,
+                                    Pk=Pk, Z=Z, nbcov=nbcov, chunked=chunked,
+                                    packed=packed)
     # Sort each entry row by peptide DESCENDING; invalid entries go to the
     # tail, so the count reads only the first F columns (F > any true
     # entry count). Inside one peptide's run the entries' order may
     # differ between the two sorts, which changes no count: runs are
-    # delimited by peptide boundaries and the z mask is per entry.
+    # delimited by peptide boundaries and the z mask is per entry. A sort
+    # moves no key past the no-entry keys, so each row's live count is
+    # its sorted row's live prefix.
     if packed:
         rows, z_sorted = bitonic_sort_rows(keys), None
     else:
         rows, order = torch.sort(keys, dim=1, stable=True)
         z_sorted = (None if z_of is None
                     else torch.gather(z_of, 1, order[:, :F]))
-    return open_count(rows, z_sorted, row_spec, row_i0, row_i1, row_maxz,
-                      F=F, K=K, nbcov=nbcov, Z=Z, packed=packed)
+    return open_count(rows, z_sorted, live, row_spec, row_i0, row_i1,
+                      row_maxz, F=F, K=K, nbcov=nbcov, Z=Z, packed=packed)
 
 
 def _open_count_core(frag_pep8, starts, lens, row_spec, row_i0, row_i1,

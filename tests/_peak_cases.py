@@ -3,9 +3,12 @@ the window-range search (``csrc/peak_ranges.cu``, open and banded
 forms), the entry gather (``csrc/open_entries.cu``) and the run-count
 top-K (``csrc/open_count.cu``).
 
-Each model follows its kernel's algorithm step for step (the binary
-searches, the scan and per-element window search, the warp-wide 32-probe
-searches, the run walk and the threshold buffer of the top-K), so the
+Each model follows its kernel's algorithm step for step (the range
+search's binary searches; the gather's capped scan, owner map, copies
+through it, tail fill and overflow fix-up; the count's searches of each
+band pseudo-row's window, its runs counted by mask sums over 32-position
+steps (warp form) or walked (block form), and the K-sized threshold
+buffer of the top-K), so the
 CPU tests can hold the algorithm against the plain versions that the
 CPU runs, and the card tests can draw their inputs from the same
 generators. No JAX here: the card's machine may not have it."""
@@ -163,9 +166,62 @@ def open_range_tables(topen, frag_mz, band_off, device):
 
 # ---- the entry gather ------------------------------------------------------
 
+ENTRIES_TILE = 2048       # windows a tile of the kernel holds
+ENTRIES_UNIT_TILE = 4096  # units a slice of its owner map holds
+_MARK = -7777             # an element no copy and no fill has written
+
+
+def entries_smem_bytes(Z, Pk, units):
+    """The gather kernel's dynamic shared memory in bytes, as
+    ``csrc/open_entries.cu:open_entries_smem_bytes`` sizes it for the
+    model's tiles: one tile's capped prefix, starts and lengths, 4 bytes
+    each a window, up to ENTRIES_TILE windows (and one prefix more), and
+    one slice of the owner map, 2 bytes a unit (``units``: F, or Wc row
+    slots when row-aligned), up to ENTRIES_UNIT_TILE, rounded up to 16
+    bytes."""
+    tw = min(Z * Pk, ENTRIES_TILE)
+    tu = min(units, ENTRIES_UNIT_TILE)
+    return 4 * (3 * tw + 1) + -(-2 * tu // 16) * 16
+
+
+def sat_scan(v, cap, carry=0):
+    """The kernel's capped exclusive scan of ``v`` (values >= 0) from
+    ``carry``: each prefix and the running sum capped at ``cap`` after
+    every addition (saturating addition on values >= 0 is associative,
+    so the kernel's grouping into lanes, warps and passes changes
+    nothing). Returns (prefixes, capped total)."""
+    out = np.empty(len(v), np.int64)
+    run = int(carry)
+    for i, x in enumerate(np.minimum(np.asarray(v, np.int64), cap)):
+        out[i] = run
+        run = min(run + int(x), cap)
+    return out, run
+
+
+def _enc(p, zt, Z, packed):
+    p = np.asarray(p, np.int64)
+    if packed:
+        key = (PMAX - p) if Z == 1 else ((PMAX - p) << 5) | zt
+        return np.where(p < 0, INT32_MAX, key)
+    return np.where(p < 0, NOPEP, -p)
+
+
 def model_entries(pep, starts, lens, *, F, Wc, Pk, Z, nbcov, chunked,
-                  packed):
-    """open_entries: the rows [B*nbcov, W] and the tags (or None)."""
+                  packed, tile=ENTRIES_TILE, unit_tile=ENTRIES_UNIT_TILE):
+    """open_entries: the rows [B*nbcov, W], the tags (or None) and the live
+    counts, by the kernel's steps. Per row, tiles of ``tile`` windows: a
+    prefix capped at F - 1 (flat) or Wc (row-aligned), so that window w
+    covers units [cum[w], cum[w + 1]) of the row (units: elements, or
+    64-entry row slots); in slices of ``unit_tile`` units an owner map,
+    each window's index written over its own units, then every unit
+    copied through its owner (flat: fragment start + unit - cum; a row
+    slot: the owner's table row start // 64 + slot - cum, each entry
+    masked to the owner's [s, e)). The tail past the copies is filled with
+    the no-entry key and the tag Z, and a flat row whose total reaches F
+    has entry F - 1 read through the last window. ``tile`` and
+    ``unit_tile`` may be shrunk to cross tiles and slices at small
+    sizes. Asserts that the copies and the fill write every element
+    once."""
     pep = np.asarray(pep, np.int32).reshape(-1)
     starts = np.asarray(starts, np.int64)
     lens = np.asarray(lens, np.int64)
@@ -173,45 +229,77 @@ def model_entries(pep, starts, lens, *, F, Wc, Pk, Z, nbcov, chunked,
     B = starts.shape[0]
     Wn = Z * Pk
     W = Wc * 64 if chunked else F
+    cap = Wc if chunked else F - 1
     keys = np.zeros((B * nbcov, W), np.int32)
     tags = (np.zeros_like(keys) if not packed and Z > 1 else None)
-    w = np.arange(Wn)
-    z = w // Pk
-    j = np.arange(W)
+    live = np.zeros(B * nbcov, np.int32)
+    w_all = np.arange(Wn)
+    z_all = w_all // Pk
+    lane = np.arange(64)
     for rr in range(B * nbcov):
         b, k = divmod(rr, nbcov)
-        col = (z * nbcov + k) * Pk + (w - z * Pk)
+        col = (z_all * nbcov + k) * Pk + (w_all - z_all * Pk)
         st, ln = starts[b, col], lens[b, col]
-        if chunked:
-            v = np.where(ln > 0, (st + ln + 63) // 64 - st // 64, 0)
-        else:
-            v = ln
-        cum = np.cumsum(v) - v
-        total = v.sum()
-        if not chunked:
-            wj = np.searchsorted(np.minimum(cum, F - 1), j, side="right") - 1
-            zt = np.clip(wj, 0, Wn - 1) // Pk + 1
-            src = np.clip(st[wj] + j - cum[wj], 0, N - 1)
-            p = np.where(j < total, pep[src], -1)
-        else:
-            r = j // 64
-            wj = np.clip(np.searchsorted(np.minimum(cum, Wc), r,
-                                         side="right") - 1, 0, Wn - 1)
-            zt = wj // Pk + 1
-            s, e = st[wj], st[wj] + ln[wj]
-            row = np.clip(s // 64 + r - cum[wj], 0, N // 64 - 1)
-            pos = row * 64 + j % 64
-            g = pep[pos]
-            p = np.where((r < total) & (pos >= s) & (pos < e) & (g >= 0), g,
-                         -1)
-        if packed:
-            key = (PMAX - p) if Z == 1 else ((PMAX - p) << 5) | zt
-            keys[rr] = np.where(p < 0, INT32_MAX, key)
-        else:
-            keys[rr] = np.where(p < 0, NOPEP, -p)
-            if tags is not None:
-                tags[rr] = zt
-    return keys, tags
+        v = (np.where(ln > 0, (st + ln + 63) // 64 - st // 64, 0) if chunked
+             else ln)
+        krow = np.full(W, _MARK, np.int64)
+        zrow = np.full(W, _MARK, np.int64)
+        carry = n_live = 0
+        for t0 in range(0, Wn, tile):
+            ws = np.arange(t0, min(t0 + tile, Wn))
+            cum, carry = sat_scan(v[ws], cap, carry)
+            cum = np.append(cum, carry)  # window w: units [cum, cum next)
+            for e0 in range(int(cum[0]), carry, unit_tile):
+                e1 = min(e0 + unit_tile, carry)
+                own = np.full(e1 - e0, -1, np.int64)
+                for i in range(ws.size):
+                    a, c1 = max(cum[i], e0), min(cum[i + 1], e1)
+                    own[a - e0: max(c1, a) - e0] = i
+                assert (own >= 0).all()
+                units = np.arange(e0, e1)
+                w = ws[own]
+                c = cum[own]
+                zt = w // Pk + 1
+                if not chunked:
+                    p = pep[np.clip(st[w] + units - c, 0, N - 1)]
+                    dst = units
+                else:
+                    rows = np.clip(st[w] // 64 + units - c, 0, N // 64 - 1)
+                    pos = rows[:, None] * 64 + lane
+                    g = pep[pos]
+                    p = np.where((pos >= st[w][:, None])
+                                 & (pos < (st[w] + ln[w])[:, None])
+                                 & (g >= 0), g, -1).reshape(-1)
+                    zt = np.repeat(zt, 64)
+                    dst = (units[:, None] * 64 + lane).reshape(-1)
+                assert (krow[dst] == _MARK).all()
+                krow[dst] = _enc(p, zt, Z, packed)
+                zrow[dst] = zt
+                n_live += int((p >= 0).sum())
+        total = int(v.sum())
+        tail = carry * 64 if chunked else carry
+        assert (krow[:tail] != _MARK).all() and (krow[tail:] == _MARK).all()
+        krow[tail:] = _enc(-1, Z, Z, packed)
+        zrow[tail:] = Z
+        if not chunked and total >= F:
+            wl = Wn - 1
+            src = st[wl] + (F - 1) - (total - ln[wl])
+            p = int(pep[np.clip(src, 0, N - 1)])
+            krow[F - 1] = _enc(p, Z, Z, packed)
+            zrow[F - 1] = Z
+            n_live += p >= 0
+        keys[rr] = krow
+        if tags is not None:
+            tags[rr] = zrow
+        live[rr] = n_live
+    return keys, tags, live
+
+
+def live_count(keys, packed):
+    """i32 [rows]: the keys of each row that hold an entry."""
+    keys = np.asarray(keys)
+    return (keys != (INT32_MAX if packed else NOPEP)).sum(
+        axis=1).astype(np.int32)
 
 
 def entries_case(seed, *, B, nbcov, Z, Pk, chunked, F, Wc, N=4096,
@@ -242,34 +330,106 @@ def entries_case(seed, *, B, nbcov, Z, Pk, chunked, F, Wc, N=4096,
 
 # ---- the run-count top-K ---------------------------------------------------
 
-def warp_first(lo, hi, pred):
-    """The kernel's warp-wide search: 32 probes a step, lane l at
-    lo + (l + 1) * step - 1, a probe at or past hi counting as true."""
+WARP_MAX_K = 64  # the largest K of the kernel's warp form
+
+
+def first_true(lo, hi, pred):
+    """A thread's binary search, as the count kernel's block form runs one
+    for each end of each band pseudo-row's window: the first x in
+    [lo, hi) where pred holds, hi if none (pred false, then true)."""
     while lo < hi:
-        step = (hi - lo + 31) // 32
-        xs = [lo + (lane + 1) * step - 1 for lane in range(32)]
-        bal = [x >= hi or pred(x) for x in xs]
-        if not any(bal):
-            return hi
-        f = bal.index(True)
-        lo, hi = lo + f * step, min(xs[f], hi)
-    return hi
+        mid = (lo + hi) // 2
+        if pred(mid):
+            hi = mid
+        else:
+            lo = mid + 1
+    return lo
 
 
-def model_count(rows, zs, row_spec, row_i0, row_i1, row_maxz, *, F, K,
-                nbcov, Z, packed, cap=4096, threads=256):
-    """open_count: the [R, 2K+2] layout, by the kernel's steps (``cap``
-    and ``threads``, the top-K buffer and the block, may be shrunk to
-    drive the buffer's compaction at small sizes)."""
+def group_first(lo, hi, pred, G):
+    """The warp form's search by a group of G lanes: G probes a step at
+    lo + (i + 1) * step - 1, step = ceil((hi - lo) / (G + 1)), a probe at
+    or past hi counting as true; the range shrinks to the one between the
+    last false probe and the first true one. The first x in [lo, hi)
+    where pred holds, hi if none."""
+    while lo < hi:
+        step = (hi - lo + G) // (G + 1)
+        t = [x >= hi or pred(x)
+             for x in (lo + (i + 1) * step - 1 for i in range(G))]
+        f = t.index(True) if True in t else G
+        x = lo + (f + 1) * step - 1
+        lo += f * step
+        hi = x if f < G and x < hi else hi
+    return lo
+
+
+def search_group(ns):
+    """The lanes a search of the warp form for ``ns`` band pseudo-rows at
+    once (two searches each): the largest power of two G <= 16 with
+    2 * ns * G <= 32."""
+    G = 16
+    while G > 1 and 2 * ns * G > 32:
+        G //= 2
+    return G
+
+
+def count_buffer(K, threads):
+    """The top-K buffer's keys: 128 in the warp form (32 positions a
+    step), else the least power of two >= 2K + threads."""
+    if threads == 32:
+        return 128
+    n = 2 * K + threads
+    return 1 << (n - 1).bit_length()
+
+
+class _TopK:
+    """The kernel's buffer behind its threshold: keys above it appended;
+    past cap - step keys, sorted, cut to K and the threshold raised."""
+
+    def __init__(self, K, cap, step):
+        self.K, self.cap, self.step = K, cap, step
+        self.buf, self.thr = [], 0
+        assert cap - step >= K
+
+    def offer(self, keys):
+        self.buf += [k for k in keys if k > self.thr]
+        assert len(self.buf) <= self.cap
+        if len(self.buf) > self.cap - self.step:
+            self.buf = sorted(self.buf, reverse=True)[:self.K]
+            self.thr = self.buf[self.K - 1]
+
+    def top(self):
+        return sorted(self.buf, reverse=True)[:self.K]
+
+
+def model_count(rows, zs, live, row_spec, row_i0, row_i1, row_maxz, *, F,
+                K, nbcov, Z, packed, form=None, cap=None, step=None):
+    """open_count: the [R, 2K+2] layout, by the kernel's steps. ``form``:
+    "warp" (the kernel's for K <= 64) or "block" (past it), chosen by K
+    when None; ``cap``, the top-K buffer, the form's own when None, and
+    the block form's ``step``, 256 positions when None, may be shrunk to
+    drive the buffer's compaction at small sizes.
+
+    The warp form takes up to 16 band pseudo-rows at once: both ends of
+    each window [a, b) within the live prefix [0, min(live, Fax)) found
+    by searches of G lanes (:func:`group_first`); then each window 32
+    positions a step, a run's count the sum of its positions' charge mask
+    within the step, the run still open at a step's end carried into the
+    next and offered when it ends, before the runs that start in that
+    step, each offered in lane order. The block form searches each window
+    by binary searches (:func:`first_true`), then a thread at each run's
+    first position walks the run, 256 positions a step."""
     rows = np.asarray(rows, np.int64)
+    live = np.asarray(live, np.int64)
     BN, Wrow = rows.shape
     Fax = min(F, Wrow)
     R = len(row_spec)
     has_z = Z > 1
+    form = form or ("warp" if K <= WARP_MAX_K else "block")
+    assert step is None or form == "block", "the warp form steps by 32"
+    step = 32 if form == "warp" else (step or 256)
+    cap = cap or count_buffer(K, step)
     out = np.zeros((R, 2 * K + 2), np.int32)
-
-    def live(x):
-        return x < NOPEP if not packed else x != INT32_MAX
 
     def pep(x):
         if not packed:
@@ -278,35 +438,81 @@ def model_count(rows, zs, row_spec, row_i0, row_i1, row_maxz, *, F, K,
 
     for r in range(R):
         i0, i1, mz = int(row_i0[r]), int(row_i1[r]), int(row_maxz[r])
-        buf, thr, mt, sc = [], 0, 0, 0
-        for slot in range(nbcov if i0 < i1 else 0):
-            p = int(np.clip(int(row_spec[r]) * nbcov + slot, 0, BN - 1))
-            row = rows[p]
-            zrow = (None if not has_z
-                    else (row & 31 if packed else np.asarray(zs)[p]))
-            L = warp_first(0, Fax, lambda j: not live(row[j]))
-            a = warp_first(0, L, lambda j: pep(row[j]) < i1)
-            b = warp_first(a, L, lambda j: pep(row[j]) < i0)
-            for base in range(a, b, threads):
-                for j in range(base, min(base + threads, b)):
-                    pj = pep(row[j])
-                    if j != a and pep(row[j - 1]) == pj:
-                        continue
-                    c, x = 0, j
-                    while x < b and pep(row[x]) == pj:
-                        c += (not has_z) or int(zrow[x]) < mz
-                        x += 1
-                    if c > 0:
-                        key = (c << 32) | pj
-                        mt += c
-                        sc += 1
-                        if key > thr:
-                            buf.append(key)
-                if len(buf) > cap - threads:
-                    buf = sorted(buf, reverse=True)[:K]
-                    thr = buf[K - 1]
-        buf = sorted(buf, reverse=True)[:K]
-        for i, key in enumerate(buf):
+        top = _TopK(K, cap, step)
+        mt = sc = 0
+        group = 16 if form == "warp" else nbcov
+        for s0 in range(0, nbcov if i0 < i1 else 0, group):
+            slots = []
+            G = search_group(min(nbcov - s0, 16))
+            for slot in range(s0, min(s0 + group, nbcov)):
+                p = int(np.clip(int(row_spec[r]) * nbcov + slot, 0, BN - 1))
+                row = rows[p]
+                n = int(np.clip(live[p], 0, Fax))
+                ends = []
+                for bound in (i1, i0):
+                    def pred(j, row=row, bound=bound):
+                        return pep(row[j]) < bound
+                    ends.append(group_first(0, n, pred, G) if form == "warp"
+                                else first_true(0, n, pred))
+                slots.append((p, *ends))
+            for p, a, b in slots:
+                row = rows[p]
+                zrow = (None if not has_z
+                        else (row & 31 if packed else np.asarray(zs)[p]))
+
+                def ok(j):
+                    return (not has_z) or int(zrow[j]) < mz
+
+                if form == "block":
+                    for base in range(a, b, step):
+                        keys = []
+                        for j in range(base, min(base + step, b)):
+                            pj = pep(row[j])
+                            if j != a and pep(row[j - 1]) == pj:
+                                continue
+                            c, x = 0, j
+                            while x < b and pep(row[x]) == pj:
+                                c += ok(x)
+                                x += 1
+                            if c > 0:
+                                keys.append((c << 32) | pj)
+                                mt += c
+                                sc += 1
+                        top.offer(keys)
+                    continue
+                is_open, cc, cp = False, 0, 0
+                for base in range(a, b, 32):
+                    js = list(range(base, min(base + 32, b)))
+                    ps = [pep(row[j]) for j in js]
+                    oks = [ok(j) for j in js]
+                    st = [i for i, j in enumerate(js)
+                          if j == a or ps[i] != (ps[i - 1] if i else cp)]
+                    last = base + 32 >= b
+                    if is_open:
+                        fs = st[0] if st else 32
+                        cc += sum(oks[:fs])
+                        if st or last:
+                            is_open = False
+                            keys = []
+                            if cc > 0:
+                                keys.append((cc << 32) | cp)
+                                mt += cc
+                                sc += 1
+                            top.offer(keys)
+                    keys = []
+                    for n_i, i in enumerate(st):
+                        if i == st[-1] and not last:
+                            continue
+                        end = st[n_i + 1] if n_i + 1 < len(st) else 32
+                        c = sum(oks[i:end])
+                        if c > 0:
+                            keys.append((c << 32) | ps[i])
+                            mt += c
+                            sc += 1
+                    top.offer(keys)
+                    if st and not last:
+                        is_open, cc, cp = True, sum(oks[st[-1]:]), ps[st[-1]]
+        for i, key in enumerate(top.top()):
             out[r, i] = key >> 32
             out[r, K + i] = key & 0xFFFFFFFF
         out[r, 2 * K] = mt
@@ -321,11 +527,13 @@ def count_case(seed, *, B, nbcov, F, W, Z, packed, R, band_w=400,
     R query rows: random precursor ranges (some empty, some covering
     every band), padding rows of spectrum B with [0, 0), charge bounds
     2-4; the first row holds more live entries than F (a cut row), the
-    second none. Returns (rows, zs or None, spec, i0, i1, maxz)."""
+    second none. Returns (rows, zs or None, live, spec, i0, i1, maxz),
+    live each row's count of live keys, in open_count's argument order."""
     rng = np.random.default_rng(seed)
     BN = B * nbcov
     rows = np.zeros((BN, W), np.int32)
     zs = np.zeros((BN, F), np.int32) if (not packed and Z > 1) else None
+    live = np.zeros(BN, np.int32)
     for rr in range(BN):
         k = rr % nbcov
         n_live = {0: W - 3, 1: 0}.get(rr, int(rng.integers(0, W)))
@@ -337,6 +545,7 @@ def count_case(seed, *, B, nbcov, F, W, Z, packed, R, band_w=400,
             zt += rng.integers(1, Z + 1, n).tolist()
         peps = np.array(peps[:n_live], np.int64)
         zt = np.array(zt[:n_live], np.int64)
+        live[rr] = n_live
         if packed:
             key = (PMAX - peps) if Z == 1 else ((PMAX - peps) << 5) | zt
             row = np.full(W, INT32_MAX, np.int64)
@@ -361,5 +570,5 @@ def count_case(seed, *, B, nbcov, F, W, Z, packed, R, band_w=400,
     i0[pad] = 0
     i1[pad] = 0
     maxz = rng.integers(2, 5, R).astype(np.int32)
-    return (rows, zs, spec, np.maximum(i0, 0).astype(np.int32),
+    return (rows, zs, live, spec, np.maximum(i0, 0).astype(np.int32),
             i1.astype(np.int32), maxz)

@@ -11,6 +11,7 @@ importing jax, which that machine may not have):
     SAGE_TPU_TEST_PLATFORM=cuda python -m pytest tests/test_torch_gpu.py -q -m gpu
 """
 
+import ctypes
 import dataclasses
 import json
 
@@ -585,7 +586,8 @@ def test_rescore_indexed_kernel_dead_items(cuda, seed, shape):
 
 
 def test_kernel_sizing_mirrors(cuda):
-    """The wrappers' sizing formulas equal the kernels' own."""
+    """The wrappers' sizing formulas equal the kernels' own, and the
+    gather's equals the model's in tests/_peak_cases.py."""
     s1 = pallas_stage1._bind()
     for W, Pk, Z in ((50, 128, 1), (50, 12000, 3), (4096, 1023, 4),
                      (16384, 2049, 2)):
@@ -594,6 +596,11 @@ def test_kernel_sizing_mirrors(cuda):
     rs = trescore._bind()
     for S, L in ((1, 7), (2, 47), (4, 64), (6, 100)):
         assert rs.rescore_smem_bytes(S, L) == trescore.rescore_smem_bytes(S, L)
+    oe = topen._bind("open_entries").open_entries_smem_bytes
+    oe.argtypes, oe.restype = [ctypes.c_int] * 3, ctypes.c_longlong
+    for Z, Pk, u in ((1, 8, 384), (3, 128, 112), (3, 128, 1280),
+                     (3, 12000, 65536), (4, 2048, 4097), (2, 4097, 7)):
+        assert oe(Z, Pk, u) == pc.entries_smem_bytes(Z, Pk, u)
 
 
 def test_kernels_at_12000_peaks(cuda, small):
@@ -732,70 +739,110 @@ def test_peak_ranges_kernel_matches_plain(cuda, tol, Zb, form):
     assert int(want[1].sum()) > 0
 
 
-@pytest.mark.parametrize("overflow", [False, True], ids=["fits", "overflow"])
-@pytest.mark.parametrize("packed", [True, False], ids=["packed", "neg"])
-@pytest.mark.parametrize("nbcov", [1, 3])
-@pytest.mark.parametrize("Z", [1, 3])
-@pytest.mark.parametrize("chunked", [False, True], ids=["flat", "chunked"])
-def test_open_entries_kernel_matches_plain(cuda, chunked, Z, nbcov, packed,
-                                           overflow):
-    """csrc/open_entries.cu against its plain version on the card: every
-    key and tag equal, rows past F (or Wc table rows) included."""
-    Pk, F, Wc = 8, 384, 8
-    pep, starts, lens = pc.entries_case(
-        Z * 10 + nbcov, B=5, nbcov=nbcov, Z=Z, Pk=Pk, chunked=chunked, F=F,
-        Wc=Wc, overflow=overflow)
+def _entries_on_card(cuda, pep, starts, lens, **kw):
+    """The gather on the card against its plain version: keys, tags and
+    live counts equal; the live counts are the rows' live keys."""
     args = [torch.from_numpy(a).to(cuda)
             for a in (pep.reshape(-1, 64), starts, lens)]
-    kw = dict(F=F, Wc=Wc, Pk=Pk, Z=Z, nbcov=nbcov, chunked=chunked,
-              packed=packed)
     got = _one_launch("open_entries", lambda: topen.open_entries(*args, **kw))
     want = topen.open_entries_plain(*args, **kw)
     assert torch.equal(got[0], want[0])
     assert (got[1] is None) == (want[1] is None)
     assert got[1] is None or torch.equal(got[1], want[1])
+    assert torch.equal(got[2], want[2])
+    np.testing.assert_array_equal(
+        got[2].cpu().numpy(), pc.live_count(got[0].cpu().numpy(),
+                                            kw["packed"]))
+    return want
+
+
+@pytest.mark.parametrize("overflow", [False, True], ids=["fits", "overflow"])
+@pytest.mark.parametrize("packed", [True, False], ids=["packed", "neg"])
+@pytest.mark.parametrize("nbcov", [1, 3, 10])
+@pytest.mark.parametrize("Z", [1, 3])
+@pytest.mark.parametrize("chunked", [False, True], ids=["flat", "chunked"])
+def test_open_entries_kernel_matches_plain(cuda, chunked, Z, nbcov, packed,
+                                           overflow):
+    """csrc/open_entries.cu against its plain version on the card: every
+    key, tag (the unpacked form's, pads included) and live count equal,
+    rows past F (or Wc table rows) included, nbcov up to the open path's
+    10."""
+    Pk, F, Wc = 8, 384, 8
+    pep, starts, lens = pc.entries_case(
+        Z * 10 + nbcov, B=5, nbcov=nbcov, Z=Z, Pk=Pk, chunked=chunked, F=F,
+        Wc=Wc, overflow=overflow)
+    _entries_on_card(cuda, pep, starts, lens, F=F, Wc=Wc, Pk=Pk, Z=Z,
+                     nbcov=nbcov, chunked=chunked, packed=packed)
+
+
+@pytest.mark.parametrize("packed", [True, False], ids=["packed", "neg"])
+@pytest.mark.parametrize("chunked", [False, True], ids=["flat", "chunked"])
+def test_open_entries_kernel_12000_peaks(cuda, chunked, packed):
+    """The gather at 12,000 peaks with Z 3 (36,000 windows a row, 18
+    tiles of 2048): keys, tags and live counts equal to the plain
+    version, a row past F among them."""
+    Pk, Z, nbcov = 12000, 3, 2
+    F, Wc = 4096, 1024
+    rng = np.random.default_rng(12000 + chunked)
+    N = 1 << 16
+    pep = rng.integers(0, 50000, N).astype(np.int32)
+    pep[-70:] = -1
+    starts = rng.integers(0, N - 80, (3, Z * nbcov * Pk)).astype(np.int32)
+    lens = (rng.random(starts.shape) < 0.02).astype(np.int32) * \
+        rng.integers(1, 4, starts.shape).astype(np.int32)
+    lens[0, : Z * Pk] = 1  # spectrum 0's first band: past F and Wc rows
+    _entries_on_card(cuda, pep, starts, lens, F=F, Wc=Wc, Pk=Pk, Z=Z,
+                     nbcov=nbcov, chunked=chunked, packed=packed)
 
 
 def _count_on_card(cuda, case, **kw):
-    rows, zs, spec, i0, i1, maxz = case
+    rows, zs, *q = case
     args = [torch.from_numpy(a).to(cuda) for a in (rows,)] + [
         None if zs is None else torch.from_numpy(zs).to(cuda)] + [
-        torch.from_numpy(a).to(cuda) for a in (spec, i0, i1, maxz)]
+        torch.from_numpy(a).to(cuda) for a in q]
     got = _one_launch("open_count", lambda: topen.open_count(*args, **kw))
     want = topen.open_count_plain(*args, **kw)
     assert torch.equal(got, want)
     return want
 
 
-@pytest.mark.parametrize("K", [50, 80])
+@pytest.mark.parametrize("max_run", [3, 40])
+@pytest.mark.parametrize("K", [50, 80, 1024])
 @pytest.mark.parametrize("packed", [True, False], ids=["packed", "neg"])
-@pytest.mark.parametrize("nbcov", [1, 4])
+@pytest.mark.parametrize("nbcov", [1, 4, 10])
 @pytest.mark.parametrize("Z", [1, 3])
-def test_open_count_kernel_matches_plain(cuda, Z, nbcov, packed, K):
+def test_open_count_kernel_matches_plain(cuda, Z, nbcov, packed, K,
+                                         max_run):
     """csrc/open_count.cu against its plain version on the card (both sort
-    branches' keys): ties, padding rows, a row cut at F, an empty row,
-    every-band ranges, K 50 and 80; the [R, 2K+2] rows equal."""
-    F, W = 512, 640
+    branches' keys, both forms: a warp a query row at K 50, a block at 80
+    and 1024): ties, padding rows, a row cut at F, an empty row,
+    every-band ranges, nbcov up to the open path's 10, runs of up to 40
+    entries (open across the warp form's 32-position steps); the
+    [R, 2K+2] rows equal. F is at least K, as every caller's is."""
+    F = max(512, K)
+    W = F + 128
     case = pc.count_case(Z + 7 * nbcov + K, B=6, nbcov=nbcov, F=F, W=W, Z=Z,
-                         packed=packed, R=40, max_run=3)
+                         packed=packed, R=40, max_run=max_run)
     want = _count_on_card(cuda, case, F=F, K=K, nbcov=nbcov, Z=Z,
                           packed=packed)
-    assert int((want[:, K - 1] > 0).sum()) > 0
+    if max_run == 3:
+        assert int((want[:, min(K, 80) - 1] > 0).sum()) > 0
+    else:  # a run counted over more than one 32-position step
+        assert int(want[:, 0].max()) > 32
 
 
-@pytest.mark.parametrize("K", [50, 1024])
+@pytest.mark.parametrize("K", [50, 64, 1024])
 def test_open_count_kernel_compacts(cuda, K):
     """Rows of 12,000 runs in one query row's window: the kernel's top-K
-    buffer (4096 keys) fills and compacts several times; equal to the
-    plain version, for K 50 and the kernel's largest K."""
+    buffer (128 keys a warp at K 50 and 64, 4096 a block at 1024) fills
+    and compacts many times; equal to the plain version."""
     F = W = 16384
     case = pc.count_case(5, B=3, nbcov=1, F=F, W=W, Z=1, packed=True, R=6,
                          band_w=20000, max_run=1)
-    rows, zs, spec, i0, i1, maxz = case
+    rows, zs, live, spec, i0, i1, maxz = case
     i0[:], i1[:] = 0, 20000
     spec[:] = [0, 2] * 3  # pseudo-row 1 holds no entries
-    want = _count_on_card(cuda, (rows, zs, spec, i0, i1, maxz), F=F, K=K,
-                          nbcov=1, Z=1, packed=True)
+    want = _count_on_card(cuda, case, F=F, K=K, nbcov=1, Z=1, packed=True)
     assert int(want[:, 2 * K + 1].min()) > 4096
 
 

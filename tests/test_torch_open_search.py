@@ -442,33 +442,42 @@ def test_peak_ranges_open_model(tol, Zb, form):
     assert want[1].sum() > 0 and (want[1] == 0).any()
 
 
+@pytest.mark.parametrize("tile", [None, (5, 7)], ids=["tile", "tiles"])
 @pytest.mark.parametrize("overflow", [False, True], ids=["fits", "overflow"])
 @pytest.mark.parametrize("packed", [True, False], ids=["packed", "neg"])
 @pytest.mark.parametrize("nbcov", [1, 3])
 @pytest.mark.parametrize("Z", [1, 3])
 @pytest.mark.parametrize("chunked", [False, True], ids=["flat", "chunked"])
-def test_open_entries_model(chunked, Z, nbcov, packed, overflow):
-    """The entry gather's scan and per-element window search write the
-    plain version's rows element for element (keys and tags), empty
-    windows, shared table rows and -1 pads included, and rows whose total
-    passes F (or Wc table rows): the same truncation, entry F - 1 of the
-    flat layout read through the last window as the plain version's
-    clipped marks make it."""
+def test_open_entries_model(chunked, Z, nbcov, packed, overflow, tile):
+    """The entry gather's capped scan, owner map, copies through it, tail
+    fill and overflow fix-up write the plain version's rows element for
+    element (keys, tags and live counts), empty windows, shared table
+    rows and -1 pads included, and rows whose total passes F (or Wc
+    table rows): the same truncation, entry F - 1 of the flat layout read
+    through the last window as the plain version's clipped marks make it.
+    ``tiles`` cuts the windows into tiles of 5 and the owner map into
+    slices of 7 units, so the capped carry crosses tiles and windows
+    cross slices (the kernel's 2048-window tiles and 4096-unit slices at
+    12,000 peaks and long rows)."""
     Pk, F, Wc = 8, 384, 8
     pep, starts, lens = pc.entries_case(
         Z * 10 + nbcov, B=5, nbcov=nbcov, Z=Z, Pk=Pk, chunked=chunked, F=F,
         Wc=Wc, overflow=overflow)
     kw = dict(F=F, Wc=Wc, Pk=Pk, Z=Z, nbcov=nbcov, chunked=chunked,
               packed=packed)
-    keys, tags = topen.open_entries(
+    keys, tags, got_live = topen.open_entries(
         torch.from_numpy(pep.reshape(-1, 64)), torch.from_numpy(starts),
         torch.from_numpy(lens), **kw)
-    w_keys, w_tags = pc.model_entries(pep, starts, lens, **kw)
+    w_keys, w_tags, w_live = pc.model_entries(
+        pep, starts, lens, **kw,
+        **(dict(tile=tile[0], unit_tile=tile[1]) if tile else {}))
     np.testing.assert_array_equal(keys.numpy(), w_keys)
     assert (tags is None) == (w_tags is None)
     if tags is not None:
         np.testing.assert_array_equal(tags.numpy(), w_tags)
-    live = (w_keys != (pc.INT32_MAX if packed else pc.NOPEP)).sum(axis=1)
+    live = pc.live_count(w_keys, packed)
+    np.testing.assert_array_equal(got_live.numpy(), w_live)
+    np.testing.assert_array_equal(w_live, live)
     assert live.max() > 0
     W = Wc * 64 if chunked else F
     # an overflowing row: more entries than its W columns hold
@@ -477,28 +486,36 @@ def test_open_entries_model(chunked, Z, nbcov, packed, overflow):
 
 
 @pytest.mark.parametrize("cap", [None, "small"])
-@pytest.mark.parametrize("K", [50, 80])
+@pytest.mark.parametrize("K", [50, 64, 80])
 @pytest.mark.parametrize("packed", [True, False], ids=["packed", "neg"])
 @pytest.mark.parametrize("nbcov", [1, 4])
 @pytest.mark.parametrize("Z", [1, 3])
 def test_open_count_model(Z, nbcov, packed, K, cap):
-    """The run-count top-K's warp-wide searches (live end, [a, b)), run
-    walk and threshold buffer equal the plain version: ties in count
-    (runs of 1-6 entries), padding query rows, empty and every-band
-    precursor ranges, a row cut at F with live entries past it, an
-    all-empty row, K 50 and 80, one top-K over nbcov band pseudo-rows
-    against the plain version's per-band top-K and merge. ``small``
-    shrinks the model's buffer so that it compacts many times."""
+    """The run-count top-K's binary searches of every band pseudo-row's
+    window [a, b) within the gather's live prefix, run walk and K-sized
+    threshold buffer (the warp form at K 50 and 64, the block form at 80)
+    equal the plain version: ties in count (runs of 1-6 entries), padding
+    query rows, empty and every-band precursor ranges, a row cut at F
+    with live entries past it, an all-empty row, one top-K over nbcov
+    band pseudo-rows against the plain version's per-band top-K and
+    merge. ``small`` shrinks the model's buffer (and the block form's
+    step) so that it compacts many times."""
     F, W = 512, 640
-    rows, zs, spec, i0, i1, maxz = pc.count_case(
+    case = pc.count_case(
         Z + 7 * nbcov + K, B=6, nbcov=nbcov, F=F, W=W, Z=Z, packed=packed,
         R=40, max_run=3)
+    rows, zs = case[:2]
     kw = dict(F=F, K=K, nbcov=nbcov, Z=Z, packed=packed)
     got = topen.open_count(
         torch.from_numpy(rows), None if zs is None else torch.from_numpy(zs),
-        *(torch.from_numpy(a) for a in (spec, i0, i1, maxz)), **kw).numpy()
-    mkw = dict(cap=K + 24, threads=16) if cap else {}
-    want = pc.model_count(rows, zs, spec, i0, i1, maxz, **kw, **mkw)
+        *(torch.from_numpy(a) for a in case[2:]), **kw).numpy()
+    # a buffer of 8 keys more than K and a step's keys: the warp form's
+    # 32-position steps, or the block form's cut to 16 positions
+    mkw = {}
+    if cap:
+        mkw = (dict(cap=K + 40) if K <= pc.WARP_MAX_K
+               else dict(cap=K + 24, step=16))
+    want = pc.model_count(*case, **kw, **mkw)
     np.testing.assert_array_equal(got, want)
     assert (want[:, K - 1] > 0).any()  # some rows fill their K
     assert (want[:, 0] == 0).any() and (want[:, 0] > 0).any()
@@ -508,14 +525,105 @@ def test_open_count_model(Z, nbcov, packed, K, cap):
 
 
 def test_warp_first_model():
-    """The count kernel's warp-wide search finds the first true position
-    of every monotone predicate on ranges of every length up to 3000."""
+    """The count kernel's searches (the warp form's G-lane search for each
+    end of each band pseudo-row's window, G 1 to 16 as the number of rows
+    searched at once gives it, and the block form's binary search) find
+    the first true position of every monotone predicate on ranges of
+    every length up to 3000."""
+    assert [pc.search_group(ns) for ns in (1, 2, 3, 4, 5, 8, 9, 16)] == \
+        [16, 8, 4, 4, 2, 2, 1, 1]
     for n in list(range(0, 70)) + [1000, 1023, 1024, 1025, 2999]:
         for t in {0, 1, n // 3, n - 1, n, n + 5}:
             if 0 <= t <= n:
-                assert pc.warp_first(0, n, lambda j: j >= t) == t
-                assert pc.warp_first(3, n + 3,
+                assert pc.first_true(0, n, lambda j: j >= t) == t
+                assert pc.first_true(3, n + 3,
                                      lambda j: j >= t + 3) == t + 3
+                for G in (1, 2, 4, 8, 16):
+                    assert pc.group_first(0, n, lambda j: j >= t, G) == t
+                    assert pc.group_first(3, n + 3, lambda j: j >= t + 3,
+                                          G) == t + 3
+
+
+@pytest.mark.parametrize("max_run", [1, 40])
+@pytest.mark.parametrize("K", [1, 50, 64])
+def test_open_count_forms_agree(K, max_run):
+    """The count model's warp form (the kernel's for K <= 64) and block
+    form on the same input give the plain version's output: on rows of
+    thousands of runs of one entry, where the warp form's buffer (128
+    keys for every K up to 64) fills and compacts many times behind its
+    threshold, and on runs of up to 40 entries of three charge planes,
+    which stay open across the warp form's 32-position steps."""
+    F = W = 4096
+    Z = 1 if max_run == 1 else 3
+    case = pc.count_case(11, B=3, nbcov=1, F=F, W=W, Z=Z, packed=True, R=5,
+                         band_w=20000, max_run=max_run)
+    rows, zs, live, spec, i0, i1, maxz = case
+    i0[:], i1[:] = 0, 20000
+    spec[:] = [0, 2, 0, 2, 1]  # pseudo-row 1 holds no entries
+    kw = dict(F=F, K=K, nbcov=1, Z=Z, packed=True)
+    want = topen.open_count_plain(*(None if a is None
+                                     else torch.from_numpy(a)
+                                     for a in case), **kw).numpy()
+    for form in ("warp", "block"):
+        np.testing.assert_array_equal(
+            pc.model_count(*case, **kw, form=form), want)
+    # runs scored in a row
+    assert want[:, 2 * K + 1].max() > (3000 if max_run == 1 else 150)
+    assert pc.count_buffer(K, 32) == 128
+
+
+@pytest.mark.parametrize("chunked", [False, True], ids=["flat", "chunked"])
+@pytest.mark.parametrize("packed", [True, False], ids=["packed", "neg"])
+def test_open_entries_live_count(chunked, packed):
+    """The gather's live count equals the count of each row's live keys,
+    in both layouts and both key forms: rows past F (the flat fix-up's
+    entry counted once), windows over the table's -1 pads (read, not
+    live), empty rows; and it is the live prefix of the sorted rows that
+    the count reads."""
+    Pk, F, Wc, Z, nbcov = 8, 384, 8, 3, 3
+    pep, starts, lens = pc.entries_case(
+        7, B=5, nbcov=nbcov, Z=Z, Pk=Pk, chunked=chunked, F=F, Wc=Wc,
+        overflow=True)
+    lens[2] = 0  # a spectrum with no entries
+    starts[1, 0], lens[1, 0] = pep.size - 70, 10  # ten of the -1 pads
+    kw = dict(F=F, Wc=Wc, Pk=Pk, Z=Z, nbcov=nbcov, chunked=chunked,
+              packed=packed)
+    keys, _tags, live = topen.open_entries(
+        torch.from_numpy(pep.reshape(-1, 64)), torch.from_numpy(starts),
+        torch.from_numpy(lens), **kw)
+    want = pc.live_count(keys.numpy(), packed)
+    np.testing.assert_array_equal(live.numpy(), want)
+    np.testing.assert_array_equal(
+        pc.model_entries(pep, starts, lens, **kw)[2], want)
+    assert want.min() == 0 and want.max() >= (F - 1 if not chunked else 1)
+    empty = pc.INT32_MAX if packed else pc.NOPEP
+    srt = np.sort(keys.numpy(), axis=1)
+    for r, n in enumerate(want):
+        assert (srt[r, :n] != empty).all() and (srt[r, n:] == empty).all()
+    # the flat rows read some -1 pads among their entries
+    if not chunked:
+        total = np.minimum(lens.reshape(5, Z, nbcov, Pk).sum(axis=(1, 3)),
+                           F).reshape(-1)
+        assert (want < total).any()
+
+
+def test_open_entries_smem_has_no_peak_ceiling():
+    """The gather kernel's shared memory (the model's sizing, which the
+    card test holds against the kernel's own): one tile's capped prefix,
+    starts and lengths, 12 bytes a
+    window and 4 more, and a slice of the owner map, 2 bytes a unit,
+    rounded up to 16: 4,612 + 2,560 bytes at Pk 128 with Z 3 and an F of
+    1,280, and at the 12,000 peaks of max_peaks 12,000 with Z 3 (36,000
+    windows) and F 65,536 one 2048-window tile and one 4096-unit slice,
+    what any larger Pk or row takes, within the 48 KB a block has without
+    opting in."""
+    smem = pc.entries_smem_bytes
+    assert smem(3, 128, 1280) == 12 * 3 * 128 + 4 + 2 * 1280 == 7172
+    top = 12 * pc.ENTRIES_TILE + 4 + 2 * pc.ENTRIES_UNIT_TILE
+    assert smem(3, 12000, 65536) == top == smem(4, 10**6, 10**6) == 32772
+    assert top <= 48 * 1024
+    for Z, Pk, u in ((1, 1, 1), (2, 100, 8), (3, 682, 4096), (1, 2048, 9)):
+        assert smem(Z, Pk, u) == 12 * Z * Pk + 4 + -(-2 * u // 16) * 16
 
 
 @pytest.mark.parametrize("nbcov_gt1", [False, True], ids=["nbcov1", "nbcovN"])
@@ -548,10 +656,10 @@ def test_kernel_models_match_sage_tpu(dbs, monkeypatch, chunked, Z,
                                                       maxz)),
         F=F, Wc=Wc, Pk=Pk, Z=Z, K=50, R=R, chunked=ch, nbcov=nbcov,
         psort=False))
-    keys, _ = pc.model_entries(np.asarray(jos.frag_pep8_dev), st, ln, F=F,
-                               Wc=Wc, Pk=Pk, Z=Z, nbcov=nbcov, chunked=ch,
-                               packed=True)
-    got = pc.model_count(np.sort(keys, axis=1), None, spec, i0, i1, maxz,
-                         F=F, K=50, nbcov=nbcov, Z=Z, packed=True)
+    keys, _, live = pc.model_entries(np.asarray(jos.frag_pep8_dev), st, ln,
+                                     F=F, Wc=Wc, Pk=Pk, Z=Z, nbcov=nbcov,
+                                     chunked=ch, packed=True)
+    got = pc.model_count(np.sort(keys, axis=1), None, live, spec, i0, i1,
+                         maxz, F=F, K=50, nbcov=nbcov, Z=Z, packed=True)
     np.testing.assert_array_equal(got, want)
     assert (want[:, 0] > 0).sum() >= n // 2

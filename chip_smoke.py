@@ -1482,16 +1482,20 @@ def host_packages_phase(times):
 
 def rerun(runner, search, out_dir, **changes):
     """Run phase 11's Runner again on ``changes`` of its parameters: a
-    fresh output list and directory, its phase accumulators and start
-    time reset (``run()`` keeps no other state between calls)."""
+    fresh output list and directory, its start time reset and the
+    result's phases this call's alone (``run()`` keeps no other state
+    between calls)."""
     import dataclasses
 
     os.makedirs(out_dir, exist_ok=True)
     runner.parameters = dataclasses.replace(
         search, output_directory=out_dir, output_paths=[], **changes)
-    runner.phases = {k: 0.0 for k in runner.phases}
     runner.start = time.monotonic()
-    return runner.run()
+    before = runner.phases
+    result = runner.run()
+    result["phases"] = {k: round(v - before.get(k, 0.0), 3)
+                        for k, v in runner.phases.items()}
+    return result
 
 
 def tdf_phase(torch, pallas_stage1, runner, spectra, tmp, pyarrow, times):

@@ -32,6 +32,7 @@ from ..chem.modification import (
 )
 from ..chem.peptide import Peptide
 from ..native import seq_f32_cumsum_rows
+from ..utils import trace
 
 log = logging.getLogger("sage_tpu_torch")
 
@@ -163,35 +164,43 @@ class DatabaseParams:
         return out
 
     def build(self, fasta: Fasta) -> "IndexedDatabase":
-        return self.build_from_peptides(self.digest(fasta))
+        """The whole build: a ``db.build`` span over ``db.digest``,
+        ``db.fragments`` and ``db.sort``."""
+        with trace.span("db.build"):
+            with trace.span("db.digest"):
+                peptides = self.digest(fasta)
+            return self.build_from_peptides(peptides)
 
     def build_from_peptides(self, peptides: List[Peptide]) -> "IndexedDatabase":
         """database.rs:265-364 — generate ion-series fragments, filter by
         min_ion_index, sort by fragment m/z, bucket, and re-sort each bucket
-        by peptide index."""
-        table = PeptideTable.from_peptides(peptides)
-        frag_mz, frag_pep = generate_index_fragments(
-            table, self.ion_kinds, self.min_ion_index
-        )
+        by peptide index (``db.fragments`` and ``db.sort`` spans)."""
+        with trace.span("db.fragments"):
+            table = PeptideTable.from_peptides(peptides)
+            frag_mz, frag_pep = generate_index_fragments(
+                table, self.ion_kinds, self.min_ion_index
+            )
 
-        order = np.argsort(frag_mz, kind="stable")
-        frag_mz = frag_mz[order]
-        frag_pep = frag_pep[order]
-        # Flat m/z-sorted copies for the peak-major open-search path
-        # (the bucketed arrays below are re-sorted by peptide per bucket).
-        frag_mz_flat = frag_mz.copy()
-        frag_pep_flat = frag_pep.copy()
+        with trace.span("db.sort"):
+            order = np.argsort(frag_mz, kind="stable")
+            frag_mz = frag_mz[order]
+            frag_pep = frag_pep[order]
+            # Flat m/z-sorted copies for the peak-major open-search path
+            # (the bucketed arrays below are re-sorted by peptide per
+            # bucket).
+            frag_mz_flat = frag_mz.copy()
+            frag_pep_flat = frag_pep.copy()
 
-        n = frag_mz.shape[0]
-        bucket_size = self.bucket_size
-        n_buckets = (n + bucket_size - 1) // bucket_size
-        bucket_min = np.empty(max(n_buckets, 0), dtype=np.float32)
-        for b in range(n_buckets):
-            sl = slice(b * bucket_size, min((b + 1) * bucket_size, n))
-            bucket_min[b] = frag_mz[sl][0]
-            inner = np.argsort(frag_pep[sl], kind="stable")
-            frag_mz[sl] = frag_mz[sl][inner]
-            frag_pep[sl] = frag_pep[sl][inner]
+            n = frag_mz.shape[0]
+            bucket_size = self.bucket_size
+            n_buckets = (n + bucket_size - 1) // bucket_size
+            bucket_min = np.empty(max(n_buckets, 0), dtype=np.float32)
+            for b in range(n_buckets):
+                sl = slice(b * bucket_size, min((b + 1) * bucket_size, n))
+                bucket_min[b] = frag_mz[sl][0]
+                inner = np.argsort(frag_pep[sl], kind="stable")
+                frag_mz[sl] = frag_mz[sl][inner]
+                frag_pep[sl] = frag_pep[sl][inner]
 
         potential_mods = [
             (spec, m) for spec, masses in self.variable_mods.items() for m in masses

@@ -20,6 +20,8 @@ import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
+from ..utils import trace
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
@@ -67,10 +69,11 @@ def build(name: str, extra_flags: Optional[List[str]] = None) -> str:
     os.close(fd)
     t0 = time.perf_counter()
     try:
-        proc = subprocess.run(
-            [nvcc_path(), *flags, "-o", tmp, src],
-            capture_output=True, text=True,
-        )
+        with trace.span("cuda.build"):
+            proc = subprocess.run(
+                [nvcc_path(), *flags, "-o", tmp, src],
+                capture_output=True, text=True,
+            )
         if proc.returncode != 0:
             raise RuntimeError(
                 f"nvcc failed for {src}:\n{proc.stdout}\n{proc.stderr}"

@@ -35,7 +35,8 @@ bucketed index walk, database.rs:480-536 and scoring.rs:335-382):
 
 Every wrapper launches its kernel on a CUDA tensor and takes the plain
 version (torch ops, kept beside it) on a CPU tensor;
-``launches`` counts the kernels' launches.
+``launches`` counts the kernels' launches, as do the recorder's
+``launch.<kernel>`` counters (``utils/trace.py``).
 
 Returns the packed [R, 2K+2] i32 layout of the fused path's merge
 (vals[K], pep[K], matched_total, scored); the two-dispatch path takes the
@@ -55,6 +56,7 @@ import torch
 
 from .pallas_sort import INT32_MAX, bitonic_sort_rows, use_pallas_sort
 from .pallas_stage1 import _TOL_KIND
+from ..utils import trace
 
 F32 = np.float32
 
@@ -114,6 +116,7 @@ def _launch(name: str, fn: str, device, *args):
     if rc != 0:
         raise RuntimeError(f"{fn} launch failed: CUDA error {rc}")
     launches[name] += 1
+    trace.count("launch." + name)
 
 
 def _on_card(name: str, *ts):

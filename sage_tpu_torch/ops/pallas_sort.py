@@ -22,7 +22,8 @@ one output, so kernels, plain versions and ``torch.sort`` agree bit for
 bit.
 
 A CUDA tensor goes to the kernels, a CPU tensor to the plain versions.
-``launches`` counts each kernel's launches.
+``launches`` counts each kernel's launches, as do the recorder's
+``launch.<kernel>`` counters (``utils/trace.py``).
 """
 
 from __future__ import annotations
@@ -30,6 +31,8 @@ from __future__ import annotations
 import ctypes
 
 import torch
+
+from ..utils import trace
 
 INT32_MAX = 2**31 - 1
 # One-pass limit of the radix kernel: its exchange buffer for 2^15 keys
@@ -101,6 +104,7 @@ def sort_rows(x: torch.Tensor) -> torch.Tensor:
         rc = lib.row_sort(x.data_ptr(), out.data_ptr(), B, F, stream)
     _raise_if(rc, "row_sort")
     launches["row_sort"] += 1
+    trace.count("launch.row_sort")
     return out
 
 
@@ -168,6 +172,7 @@ def cluster_sort(x: torch.Tensor, block=None) -> torch.Tensor:
                               stream)
     _raise_if(rc, "cluster_sort")
     launches["cluster_sort"] += 1
+    trace.count("launch.cluster_sort")
     return out
 
 

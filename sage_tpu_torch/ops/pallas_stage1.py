@@ -10,7 +10,8 @@ outside the row's peptide range [i0, i1) count 0. Output: i32
 ``[R, W + 2]`` = ``[counts[0..W), sum(counts), #(counts > 0)]``.
 
 A CUDA tensor goes to the kernel (``csrc/stage1_counts.cu``), a CPU
-tensor to the plain version. ``launches`` counts kernel launches.
+tensor to the plain version. ``launches`` counts kernel launches, as
+does the recorder's ``launch.stage1_counts`` counter (``utils/trace.py``).
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ from __future__ import annotations
 import ctypes
 
 import torch
+
+from ..utils import trace
 
 launches = 0
 
@@ -109,6 +112,7 @@ def stage1_counts(lad_index, peaks, ints, *, W: int, Lc: int, Z: int, tol):
     if rc != 0:
         raise RuntimeError(f"stage1_counts launch failed: CUDA error {rc}")
     launches += 1
+    trace.count("launch.stage1_counts")
     return out
 
 

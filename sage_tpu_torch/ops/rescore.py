@@ -14,7 +14,8 @@ in the fragments-iterator order, and the longest-run automata
 their rows' peaks by index; :func:`rescore_candidate` is its thin form
 over an explicit ladder grid. A CUDA tensor goes to the kernel
 (``csrc/rescore.cu``), a CPU tensor to the plain version. ``launches``
-counts kernel launches. The module also holds the f32 helpers that
+counts kernel launches, as does the recorder's ``launch.rescore``
+counter (``utils/trace.py``). The module also holds the f32 helpers that
 ``ops/search.py`` imports from it: ``_fdiv``, ``tol_bounds_static`` and
 ``_SERIES_NTERM``.
 """
@@ -27,6 +28,7 @@ import numpy as np
 import torch
 
 from .pallas_stage1 import _TOL_KIND
+from ..utils import trace
 
 launches = 0
 
@@ -171,6 +173,7 @@ def rescore_indexed(lad, pep, spec, pkm, pki, maxz, live=None, *, series,
     if rc != 0:
         raise RuntimeError(f"rescore_indexed launch failed: CUDA error {rc}")
     launches += 1
+    trace.count("launch.rescore")
     return tuple(outs)
 
 

@@ -75,6 +75,7 @@ from .rescore import (
     rescore_indexed,
     tol_bounds_static,
 )
+from ..utils import trace
 
 log = logging.getLogger("sage_tpu_torch")
 
@@ -291,10 +292,21 @@ def pipeline_stream(batches, admit, advance, finish):
     On hosts with >= 4 cores a worker thread runs ``advance`` while the
     feeder admits and the consumer finishes (the fetch releases the
     GIL); on smaller hosts a sliding dispatch window of depth 2 runs on
-    one thread."""
+    one thread. An admitted batch's time between its stages, queued for
+    the other thread or behind other batches, is a ``search.wait`` span
+    of its ``bid``."""
     import os
 
     from .features import FeatureTable
+
+    def queued(e):
+        e["_t_wait"] = trace.clock()
+        return e
+
+    def taken(e):
+        if "_t_wait" in e:
+            trace.interval("search.wait", e.pop("_t_wait"), e.get("bid"))
+        return e
 
     if (os.cpu_count() or 1) >= 4:
         import queue as _q
@@ -314,7 +326,7 @@ def pipeline_stream(batches, admit, advance, finish):
                     q2.put(_END)
                     return
                 try:
-                    q2.put(e if e.get("empty") else advance(e))
+                    q2.put(e if e.get("empty") else queued(advance(taken(e))))
                 except BaseException as exc:  # propagate to consumer
                     q2.put(exc)
                     q2.put(_END)  # so the consumer's drain terminates
@@ -335,14 +347,16 @@ def pipeline_stream(batches, admit, advance, finish):
                             q1.put(_END)
                             break
                         q1.put(
-                            {"empty": True} if not batch else admit(batch)
+                            {"empty": True} if not batch
+                            else queued(admit(batch))
                         )
                     e = q2.get()
                     if e is _END:
                         break
                     if isinstance(e, BaseException):
                         raise e
-                    yield FeatureTable.empty() if e.get("empty") else finish(e)
+                    yield (FeatureTable.empty() if e.get("empty")
+                           else finish(taken(e)))
             finally:
                 # On ANY early exit (consumer exception, GeneratorExit
                 # from an abandoned generator) the worker must be
@@ -375,17 +389,17 @@ def pipeline_stream(batches, admit, advance, finish):
     from collections import deque
 
     def finish_any(e):
-        return FeatureTable.empty() if e.get("empty") else finish(e)
+        return FeatureTable.empty() if e.get("empty") else finish(taken(e))
 
     def advance_once(e):
         if not e.get("empty") and not e.get("_advanced"):
             e["_advanced"] = True
-            advance(e)
+            queued(advance(taken(e)))
 
     pend = deque()
     A = 2
     for batch in batches:
-        pend.append({"empty": True} if not batch else admit(batch))
+        pend.append({"empty": True} if not batch else queued(admit(batch)))
         if len(pend) >= A + 1:
             advance_once(pend[-(A + 1)])  # oldest un-advanced entry
         if len(pend) >= A + 2:
@@ -397,7 +411,12 @@ def pipeline_stream(batches, admit, advance, finish):
 
 
 def _to_dev(a: np.ndarray, device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    """Copy a host array to ``device``: a ``search.upload`` span, its
+    bytes counted in ``search.upload_bytes``."""
+    a = np.ascontiguousarray(a)
+    with trace.span("search.upload"):
+        trace.count("search.upload_bytes", a.nbytes)
+        return torch.from_numpy(a).to(device)
 
 
 class _DeviceTables:
@@ -728,26 +747,38 @@ class Scorer:
             return FeatureTable.empty()
         if self.params.chimera:
             return self._score_chimera(spectra)
-        masses, intens, Pk = self._pad_peaks(spectra)
-        peaks_dev = self._peaks_device(masses, intens)
-        rows = self._expand_rows(spectra)
-        fd = self._fused_dispatch(spectra, masses, Pk, peaks_dev, rows=rows)
-        if fd is not None:
+        bid = trace.new_batch()
+        with trace.span("search.prep", bid):
+            masses, intens, Pk = self._pad_peaks(spectra)
+            peaks_dev = self._peaks_device(masses, intens)
+            rows = self._expand_rows(spectra)
+        with trace.span("search.dispatch", bid):
+            fd = self._fused_dispatch(spectra, masses, Pk, peaks_dev,
+                                      rows=rows)
+        if fd is None:
+            return self._two_dispatch(spectra, masses, intens, Pk, peaks_dev,
+                                      rows, bid)
+        with trace.span("search.finalize", bid):
             t = self._fused_finalize(spectra, fd, masses, intens, Pk)
-            if t is not None:
-                return t
-            self._note_rerun()
-        return self._two_dispatch(spectra, masses, intens, Pk, peaks_dev,
-                                  rows)
+        if t is not None:
+            return t
+        self._note_rerun()
+        with trace.span("search.rerun", bid):
+            return self._two_dispatch(spectra, masses, intens, Pk, peaks_dev,
+                                      rows)
 
-    def _two_dispatch(self, spectra, masses, intens, Pk, peaks_dev, rows):
+    def _two_dispatch(self, spectra, masses, intens, Pk, peaks_dev, rows,
+                      batch=None):
         """Stage 1 and the host merge, then the per-item rescore and the
-        host selection: the path of every batch the fused path declines."""
-        prelim = self._prelim_finalize(self._prelim_dispatch(
-            spectra, masses=masses, peaks_dev=peaks_dev, rows=rows
-        ))
+        host selection: the path of every batch the fused path declines.
+        ``batch``: the batch id of its spans (else the enclosing span's)."""
+        with trace.span("search.dispatch", batch):
+            d1 = self._prelim_dispatch(spectra, masses=masses,
+                                       peaks_dev=peaks_dev, rows=rows)
+        with trace.span("search.finalize", batch):
+            prelim = self._prelim_finalize(d1)
         return self._features_table(spectra, prelim, masses, intens, Pk,
-                                    peaks_dev=peaks_dev)
+                                    peaks_dev=peaks_dev, batch=batch)
 
     def _note_rerun(self):
         """Count and log a fused batch that _fused_finalize declined (a
@@ -773,48 +804,60 @@ class Scorer:
             return
 
         def admit(batch):
-            masses, intens, Pk = self._pad_peaks(batch)
-            peaks_dev = self._peaks_device(masses, intens)
-            rows = self._expand_rows(batch)
+            bid = trace.new_batch()
+            with trace.span("search.prep", bid):
+                masses, intens, Pk = self._pad_peaks(batch)
+                peaks_dev = self._peaks_device(masses, intens)
+                rows = self._expand_rows(batch)
             e = {
-                "batch": batch, "masses": masses, "intens": intens, "Pk": Pk,
-                "peaks_dev": peaks_dev, "rows": rows,
-                "fd": self._fused_dispatch(batch, masses, Pk, peaks_dev,
-                                           rows=rows),
+                "bid": bid, "batch": batch, "masses": masses,
+                "intens": intens, "Pk": Pk, "peaks_dev": peaks_dev,
+                "rows": rows,
             }
-            if e["fd"] is None:
-                e["d1"] = self._prelim_dispatch(
-                    batch, masses=masses, peaks_dev=peaks_dev, rows=rows
-                )
+            with trace.span("search.dispatch", bid):
+                e["fd"] = self._fused_dispatch(batch, masses, Pk, peaks_dev,
+                                               rows=rows)
+                if e["fd"] is None:
+                    e["d1"] = self._prelim_dispatch(
+                        batch, masses=masses, peaks_dev=peaks_dev, rows=rows
+                    )
             return e
 
         def advance(e):
             # the stage-1 fetch, host merge and stage-2 launch; or, on the
             # fused path, the packed fetch and the whole host finalize
+            bid = e["bid"]
             if e["fd"] is None:
-                e["prelim"] = self._prelim_finalize(e["d1"])
-                e["d2"] = self._stage2_dispatch(
-                    e["prelim"], e["intens"], e["peaks_dev"]
-                )
+                with trace.span("search.finalize", bid):
+                    e["prelim"] = self._prelim_finalize(e["d1"])
+                with trace.span("search.dispatch", bid):
+                    e["d2"] = self._stage2_dispatch(
+                        e["prelim"], e["intens"], e["peaks_dev"]
+                    )
             else:
-                packed_np = e["fd"]["fused"].cpu().numpy()
-                e["table"] = self._fused_finalize(
-                    e["batch"], e["fd"], e["masses"], e["intens"], e["Pk"],
-                    packed=packed_np,
-                )
+                with trace.span("search.fetch", bid):
+                    packed_np = e["fd"]["fused"].cpu().numpy()
+                with trace.span("search.finalize", bid):
+                    e["table"] = self._fused_finalize(
+                        e["batch"], e["fd"], e["masses"], e["intens"],
+                        e["Pk"], packed=packed_np,
+                    )
             return e
 
         def finish(e):
             if e["fd"] is None:
-                return self._stage2_finalize(
-                    e["batch"], e["prelim"], e["d2"],
-                    self.params.report_psms, e["masses"], e["Pk"],
-                )
+                with trace.span("search.finalize", e["bid"]):
+                    return self._stage2_finalize(
+                        e["batch"], e["prelim"], e["d2"],
+                        self.params.report_psms, e["masses"], e["Pk"],
+                    )
             if e["table"] is not None:
                 return e["table"]
             self._note_rerun()
-            return self._two_dispatch(e["batch"], e["masses"], e["intens"],
-                                      e["Pk"], e["peaks_dev"], e["rows"])
+            with trace.span("search.rerun", e["bid"]):
+                return self._two_dispatch(e["batch"], e["masses"],
+                                          e["intens"], e["Pk"],
+                                          e["peaks_dev"], e["rows"])
 
         yield from pipeline_stream(batches, admit, advance, finish)
 
@@ -1552,7 +1595,8 @@ class Scorer:
         F (either may have truncated entries; the shapes or F grow
         first), and when a per-spectrum sum reached 2^24."""
         if packed is None:
-            packed = d["fused"].cpu().numpy()
+            with trace.span("search.fetch"):
+                packed = d["fused"].cpu().numpy()
         if d.get("nb_F") is not None:
             totmax = int(packed[-1, 1])
             if totmax >= d["nb_F"]:
@@ -1713,8 +1757,9 @@ class Scorer:
             [np.arange(offs[s], offs[s] + cnt[s]) for s in failed]
         )
         idx_dev = _to_dev(take_idx.astype(np.int64), self.device)
-        g7 = d["items7"][idx_dev].cpu().numpy()
-        g4 = d["meta"][idx_dev].cpu().numpy()
+        with trace.span("search.fetch"):
+            g7 = d["items7"][idx_dev].cpu().numpy()
+            g4 = d["meta"][idx_dev].cpu().numpy()
         items7 = np.zeros((int(take_idx.max(initial=0)) + 1, 7), np.float32)
         meta = np.zeros((items7.shape[0], 4), np.int32)
         items7[take_idx] = g7
@@ -1854,7 +1899,8 @@ class Scorer:
         [R, W+2] window, or the [R, 2K+2] per-row top-K."""
         out = d["out_dev"]
         if isinstance(out, torch.Tensor):
-            out = out.cpu().numpy()
+            with trace.span("search.fetch"):
+                out = out.cpu().numpy()
         n_rows, W = d["n_rows"], d["W"]
         p0, spec_idx = d["p0"], d["spec_idx"]
         expected = W + 2 if d["counts_only"] else 2 * K + 2
@@ -1915,16 +1961,20 @@ class Scorer:
 
     def _features_table(self, spectra, prelim, masses, intens, Pk,
                         peaks_dev, report_psms=None, removed_masks=None,
-                        tic_override=None) -> FeatureTable:
+                        tic_override=None, batch=None) -> FeatureTable:
         """Stage 2 and the vectorized host feature assembly
         (scoring.rs:478-595, 675-767). A chimera round passes the removed
         peaks, its report depth and its recomputed TICs."""
-        d2 = self._stage2_dispatch(prelim, intens, peaks_dev, masses=masses,
-                                   removed_masks=removed_masks)
+        with trace.span("search.dispatch", batch):
+            d2 = self._stage2_dispatch(prelim, intens, peaks_dev,
+                                       masses=masses,
+                                       removed_masks=removed_masks)
         if report_psms is None:
             report_psms = self.params.report_psms
-        return self._stage2_finalize(spectra, prelim, d2, report_psms,
-                                     masses, Pk, tic_override=tic_override)
+        with trace.span("search.finalize", batch):
+            return self._stage2_finalize(spectra, prelim, d2, report_psms,
+                                         masses, Pk,
+                                         tic_override=tic_override)
 
     def _stage2_dispatch(self, prelim, intens, peaks_dev, masses=None,
                          removed_masks=None):
@@ -1990,7 +2040,8 @@ class Scorer:
             t = FeatureTable.empty()
             t.spec_ids = spec_ids
             return t
-        out = d2["out_dev"].cpu().numpy()  # f32 [nI, 7]
+        with trace.span("search.fetch"):
+            out = d2["out_dev"].cpu().numpy()  # f32 [nI, 7]
         mb = out[:nI, 0].astype(np.int32)
         my = out[:nI, 1].astype(np.int32)
         sb, sy, ppm_sum = out[:nI, 2], out[:nI, 3], out[:nI, 4]

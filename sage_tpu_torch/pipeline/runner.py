@@ -22,7 +22,6 @@ from __future__ import annotations
 import gzip
 import logging
 import os
-import threading
 import time
 from typing import List, Optional, Tuple
 
@@ -34,7 +33,6 @@ from .. import protein_grouping
 from ..chem.fasta import Fasta
 from ..chem.mass import Tolerance
 from ..ml import lda, mobility_model, qvalue, retention_alignment, retention_model
-from ..ops import pallas_sort, pallas_stage1
 from ..ops.features import FeatureTable
 from ..ops.search import Scorer, SearchParams
 from ..parallel.multihost import (
@@ -42,6 +40,7 @@ from ..parallel.multihost import (
 )
 from ..quant import tmt as tmt_mod
 from ..spectrum.processor import ProcessedSpectrum, SpectrumProcessor
+from ..utils import trace
 from .input import Search
 from .output import OutputWriter
 
@@ -63,8 +62,19 @@ def read_fasta(path: str, decoy_tag: str, generate_decoys: bool) -> Fasta:
     return Fasta.parse(contents, decoy_tag, generate_decoys)
 
 
+# the port's hand kernels, by the name of their launch counters
+KERNELS = ("stage1_counts", "row_sort", "cluster_sort", "rescore",
+           "peak_ranges", "open_entries", "open_count")
+
+# Runner.phases' keys, each the ``run.<phase>`` span's seconds
+PHASES = ("db_build", "read", "process", "search", "rt_ml", "fdr", "lda",
+          "quant", "write")
+
+
 def _kernel_launches() -> dict:
-    return {"stage1_counts": pallas_stage1.launches, **pallas_sort.launches}
+    """Each hand kernel's launches in this process so far."""
+    c = trace.counters()
+    return {k: c.get("launch." + k, 0) for k in KERNELS}
 
 
 class Runner:
@@ -94,37 +104,40 @@ class Runner:
         self.device = torch.device(device)
         self.parameters = parameters
         self.start = time.monotonic()
-        # Per-phase wall-second accumulators (the analog of the
-        # reference's per-phase ms logs, runner.rs:476-477, 673-674);
-        # returned from run() and logged at the end so the gap between
-        # kernel throughput and pipeline throughput is always attributed.
-        self.phases: dict = {
-            "db_build_s": 0.0, "read_s": 0.0, "process_s": 0.0,
-            "search_s": 0.0, "rt_ml_s": 0.0, "fdr_s": 0.0,
-            "quant_s": 0.0, "write_s": 0.0,
-        }
-        self._phase_lock = threading.Lock()
+        # the recorder's totals when this Runner began: its phases are
+        # the run.* spans' growth since (Runners of a process run one
+        # at a time)
+        self._phase_base = trace.totals()
         db_params = parameters.database
         fasta = read_fasta(db_params.fasta, db_params.decoy_tag, db_params.generate_decoys)
-        t0 = time.monotonic()
-        if db_params.prefilter:
-            # prefilter mode handled during batch search (runner.rs:104-127)
-            self.database = None
-            self._fasta = fasta
-        else:
-            self.database = db_params.build(fasta)
-            self._fasta = None
-        self.phases["db_build_s"] = time.monotonic() - t0
+        with trace.span("run.db_build") as build:
+            if db_params.prefilter:
+                # prefilter mode handled during batch search
+                # (runner.rs:104-127)
+                self.database = None
+                self._fasta = fasta
+            else:
+                self.database = db_params.build(fasta)
+                self._fasta = None
         log.info(
             "generated %d fragments, %d peptides in %dms",
             self.database.num_fragments if self.database else 0,
             len(self.database) if self.database else 0,
-            int((time.monotonic() - t0) * 1000),
+            build.ns // 1_000_000,
         )
 
-    def _phase_add(self, key: str, seconds: float) -> None:
-        with self._phase_lock:
-            self.phases[key] = self.phases.get(key, 0.0) + seconds
+    @property
+    def phases(self) -> dict:
+        """Per-phase wall seconds of this Runner so far (the analog of
+        the reference's per-phase ms logs, runner.rs:476-477, 673-674):
+        each ``run.<phase>`` span's total, ``lda_s`` a part of ``fdr_s``;
+        ``gather_s`` in a multi-process run. Returned from run() and
+        logged at the end so the gap between kernel throughput and
+        pipeline throughput is always attributed."""
+        now = trace.totals()
+        keys = PHASES + (("gather",) if self.process_count > 1 else ())
+        return {k + "_s": now.get("run." + k, 0.0)
+                - self._phase_base.get("run." + k, 0.0) for k in keys}
 
     # ------------------------------------------------------------------
 
@@ -168,20 +181,16 @@ class Runner:
         p = self.parameters
         sn_level = p.quant.tmt_settings.level if p.quant.tmt_settings.sn else None
         sp = self._spectrum_processor()
-        t0 = time.monotonic()
-        raw = read_spectra(
-            path,
-            file_id=file_id,
-            signal_to_noise=sn_level,
-            requires_ms1=bool(p.quant.lfq),
-            bruker_config=p.bruker_config,
-        )
-        t1 = time.monotonic()
-        out = [sp.process(s) for s in raw]
-        t2 = time.monotonic()
-        self._phase_add("read_s", t1 - t0)
-        self._phase_add("process_s", t2 - t1)
-        return out
+        with trace.span("run.read"):
+            raw = read_spectra(
+                path,
+                file_id=file_id,
+                signal_to_noise=sn_level,
+                requires_ms1=bool(p.quant.lfq),
+                bruker_config=p.bruker_config,
+            )
+        with trace.span("run.process"):
+            return [sp.process(s) for s in raw]
 
     def process_file(
         self, scorer: Scorer, path: str, file_id: int, spectra=None
@@ -198,12 +207,11 @@ class Runner:
         ms2 = [
             s for s in spectra if s.level == 2 and len(s) >= p.min_peaks
         ]
-        t0 = time.monotonic()
-        batches = [ms2[i : i + SCORE_BATCH] for i in range(0, len(ms2), SCORE_BATCH)]
-        tables = list(scorer.score_stream(batches))
-        features = FeatureTable.concat(tables) if tables else FeatureTable.empty()
-        dt = time.monotonic() - t0
-        self._phase_add("search_s", dt)
+        with trace.span("run.search") as search:
+            batches = [ms2[i : i + SCORE_BATCH] for i in range(0, len(ms2), SCORE_BATCH)]
+            tables = list(scorer.score_stream(batches))
+            features = FeatureTable.concat(tables) if tables else FeatureTable.empty()
+        dt = search.ns / 1e9
         log.info(
             "- search:  %8d ms (%d spectra/s)",
             int(dt * 1000),
@@ -215,9 +223,10 @@ class Runner:
             level = p.quant.tmt_settings.level
             if level != 2 and level != 3:
                 log.warning("TMT quant level set at %d, is this correct?", level)
-            quant = tmt_mod.quantify(
-                spectra, p.quant.tmt, Tolerance("ppm", -20.0, 20.0), level
-            )
+            with trace.span("run.quant"):
+                quant = tmt_mod.quantify(
+                    spectra, p.quant.tmt, Tolerance("ppm", -20.0, 20.0), level
+                )
 
         ms1 = [s for s in spectra if s.level == 1] if p.quant.lfq else []
         return features, quant, ms1
@@ -416,9 +425,8 @@ class Runner:
             # the reference's parallel SageResults reduce,
             # output.rs:21-41); every process goes on with the same full
             # result set.
-            t_g = time.monotonic()
-            pieces = gather_file_results(pieces)
-            self._phase_add("gather_s", time.monotonic() - t_g)
+            with trace.span("run.gather"):
+                pieces = gather_file_results(pieces)
             log.info("gathered %d files' results from %d processes",
                      len(pieces), self.process_count)
         all_quant = [q for _, _, quant, _ in pieces for q in quant]
@@ -434,33 +442,33 @@ class Runner:
         )
 
         alignments = None
-        t_rt = time.monotonic()
-        if p.predict_rt:
-            # Poisson is usually the best single feature; use it to get a
-            # confident PSM set for RT model training (runner.rs:513-531)
-            order = np.argsort(features.columns["poisson"], kind="stable")
-            features = features.select(order)
-            q, _ = qvalue.spectrum_q_value(features.columns["label"])
-            features.columns["spectrum_q"][:] = q
-            alignments = retention_alignment.global_alignment(
-                features, len(p.mzml_paths)
-            )
-            retention_model.predict(self.database, features)
-            mobility_model.predict(self.database, features)
-        t_fdr = time.monotonic()
-        self._phase_add("rt_ml_s", t_fdr - t_rt)
+        with trace.span("run.rt_ml"):
+            if p.predict_rt:
+                # Poisson is usually the best single feature; use it to
+                # get a confident PSM set for RT model training
+                # (runner.rs:513-531)
+                order = np.argsort(features.columns["poisson"], kind="stable")
+                features = features.select(order)
+                q, _ = qvalue.spectrum_q_value(features.columns["label"])
+                features.columns["spectrum_q"][:] = q
+                alignments = retention_alignment.global_alignment(
+                    features, len(p.mzml_paths)
+                )
+                retention_model.predict(self.database, features)
+                mobility_model.predict(self.database, features)
 
-        q_spectrum = self.spectrum_fdr(features)
-        q_peptide = fdr_mod.picked_peptide(self.database, features)
-        q_protein = fdr_mod.picked_protein(self.database, features)
-        protein_grouping.generate_protein_groups(
-            self.database,
-            features,
-            p.protein_grouping,
-            p.protein_grouping_peptide_fdr,
-        )
-        q_protein_group = fdr_mod.picked_protein_group(self.database, features)
-        self._phase_add("fdr_s", time.monotonic() - t_fdr)
+        with trace.span("run.fdr"):
+            q_spectrum = self.spectrum_fdr(features)
+            q_peptide = fdr_mod.picked_peptide(self.database, features)
+            q_protein = fdr_mod.picked_protein(self.database, features)
+            protein_grouping.generate_protein_groups(
+                self.database,
+                features,
+                p.protein_grouping,
+                p.protein_grouping_peptide_fdr,
+            )
+            q_protein_group = fdr_mod.picked_protein_group(self.database,
+                                                           features)
 
         filenames = [path.split("/")[-1] for path in p.mzml_paths]
 
@@ -469,13 +477,14 @@ class Runner:
             from ..quant import lfq as lfq_mod
 
             log.info("performing LFQ")
-            t_q = time.monotonic()
-            feature_map = lfq_mod.build_feature_map(
-                p.quant.lfq_settings, p.precursor_charge, self.database, features
-            )
-            areas = feature_map.quantify(self.database, all_ms1, alignments)
-            q_precursor = lfq_mod.assign_precursor_q(areas)
-            self._phase_add("quant_s", time.monotonic() - t_q)
+            with trace.span("run.quant"):
+                feature_map = lfq_mod.build_feature_map(
+                    p.quant.lfq_settings, p.precursor_charge, self.database,
+                    features,
+                )
+                areas = feature_map.quantify(self.database, all_ms1,
+                                             alignments)
+                q_precursor = lfq_mod.assign_precursor_q(areas)
             log.info("discovered %d target MS1 peaks at 5%% FDR", q_precursor)
 
         log.info(
@@ -491,11 +500,9 @@ class Runner:
             "peptides only) at 1%% FDR", q_protein_group,
         )
 
-        t_w = time.monotonic()
-        if self.process_id == 0:
-            self._write_outputs(features, filenames, all_quant, areas)
-
-        self._phase_add("write_s", time.monotonic() - t_w)
+        with trace.span("run.write"):
+            if self.process_id == 0:
+                self._write_outputs(features, filenames, all_quant, areas)
         run_time = int(time.monotonic() - self.start)
         phases = {k: round(v, 3) for k, v in self.phases.items()}
         log.info(
@@ -578,7 +585,9 @@ class Runner:
         """runner.rs:280-291: LDA with heuristic fallback, then sort by
         discriminant score and assign spectrum q-values."""
         c = features.columns
-        if lda.score_psms(features, self.parameters.precursor_tol) is None:
+        with trace.span("run.lda"):
+            fitted = lda.score_psms(features, self.parameters.precursor_tol)
+        if fitted is None:
             log.warning(
                 "linear model fitting failed, falling back to heuristic "
                 "discriminant score"

@@ -1,1 +1,2 @@
-"""Utilities of the port: the device-time meter (``devprof``)."""
+"""Utilities of the port: the device-time meter (``devprof``) and the
+spans and counters (``trace``)."""

@@ -17,9 +17,10 @@ seconds):
    import. Without pyarrow phase 20 writes TSV and records its parquet
    half as not run.
 1. Device: the card's name and power limit; exits non-zero without CUDA.
-2. Build: the seven kernel sources (csrc/stage1_counts.cu,
+2. Build: the eight kernel sources (csrc/stage1_counts.cu,
    csrc/row_sort.cu, csrc/cluster_sort.cu, csrc/rescore.cu,
-   csrc/peak_ranges.cu, csrc/open_entries.cu, csrc/open_count.cu) with
+   csrc/peak_ranges.cu, csrc/open_entries.cu, csrc/open_count.cu,
+   csrc/batch_prep.cu) with
    nvcc, side by side, printing ptxas's registers / shared-memory / spill
    lines and the build time.
 11. Runner at full size (runs right after the build: its database is the
@@ -218,7 +219,10 @@ seconds):
     16's rows beside them (``by_input``); phase 7's lowered-limit run adds
     ``forced_launches``; the rescore kernel's main path is phase 3, its
     paths 3, 6, 11, 13-17 (15 and 16 banded), 20, 22-24 and 26, its
-    times phase 25's at phase 3's input.
+    times phase 25's at phase 3's input. The batch-prep kernel's main
+    path is phase 3 (one launch a batch), its paths 3, 6, 11, 13-17, 20,
+    22-24 and 26 (must be 0 on 17 and 22-24, which keep the host's prep;
+    phase 21's processes are not counted), its times phase 28's.
 25. Rescore kernel against plain (runs after phase 17): the inputs of
     ``rescore_indexed`` (the ladder table, pep, spec, the peak rows, maxz
     and live) captured, outside every timed run, at phase 3's narrow and
@@ -263,6 +267,17 @@ seconds):
     beside the card's bound for the same work and, for the range search,
     torch.searchsorted over the bands' composite keys (band * 2^17 +
     m/z), timed both ways.
+28. Batch-prep kernel against plain and the host (runs after phase 5):
+    the inputs of ``batch_prep`` captured at phase 3's warm-up batch
+    (8192 spectra: their flat peaks and offsets, the query rows' window
+    bounds, the device's peptide masses). The padded block and i0 / i1
+    of the main path's own call, and of the kernel called again, must be
+    bit-equal to the plain version on the same card tensors, to the
+    host's prep of the same batch (``Scorer._pad_peaks`` and
+    ``Scorer._expand_rows``) and to ``np.searchsorted`` over the bounds.
+    Timed with CUDA events, kernel, plain version, kernel again, beside
+    the card's bound for its bytes; prints the host's prep of the batch
+    and ``Scorer._prep``'s, each synchronised.
 
 A ``# record:`` line repeats the run's numbers as JSON.
 """
@@ -314,6 +329,9 @@ KERNELS = {
                      "sage_tpu/ops/open_search.py:423"),
     "open_count": ("sage_tpu_torch/csrc/open_count.cu",
                    "sage_tpu/ops/open_search.py:465"),
+    # no TPU kernel: the host's peak padding and window search
+    "batch_prep": ("sage_tpu_torch/csrc/batch_prep.cu",
+                   "sage_tpu/ops/search.py _pad_peaks, _expand_rows"),
 }
 # the peak-major searches' kernels (ops/open_search.py's launch counters)
 PEAK_KERNELS = ("peak_ranges", "open_entries", "open_count")
@@ -479,13 +497,11 @@ def profile_batch(torch, scorer, batch, ranged, kernel_keys, top=8):
     sync = torch.cuda.synchronize
     ph = {}
     t0 = time.perf_counter()
-    masses, intens, Pk = scorer._pad_peaks(batch)
-    peaks_dev = scorer._peaks_device(masses, intens)
-    rows = scorer._expand_rows(batch)
+    cols, peaks_dev, rows = scorer._prep(batch)
     sync()
     ph["prep_ms"] = (time.perf_counter() - t0) * 1e3
     t0 = time.perf_counter()
-    fd = scorer._fused_dispatch(batch, masses, Pk, peaks_dev, rows=rows)
+    fd = scorer._fused_dispatch(batch, cols, peaks_dev, rows=rows)
     ph["dispatch_host_ms"] = (time.perf_counter() - t0) * 1e3
     sync()
     ph["dispatch_to_done_ms"] = (time.perf_counter() - t0) * 1e3
@@ -493,7 +509,7 @@ def profile_batch(torch, scorer, batch, ranged, kernel_keys, top=8):
     packed = fd["fused"].cpu().numpy()
     ph["fetch_ms"] = (time.perf_counter() - t0) * 1e3
     t0 = time.perf_counter()
-    t = scorer._fused_finalize(batch, fd, masses, intens, Pk, packed=packed)
+    t = scorer._fused_finalize(fd, cols, packed=packed)
     assert t is not None, "profiled batch overflowed its sticky shapes"
     ph["finalize_ms"] = (time.perf_counter() - t0) * 1e3
     log("# batch phases (ms, synchronised): "
@@ -617,6 +633,26 @@ def rescore_mod():
     return rescore
 
 
+def prep_mod():
+    """The batch-prep kernel's module: its wrapper, plain version and
+    ``launches`` counter."""
+    from sage_tpu_torch.ops import batch_prep
+
+    return batch_prep
+
+
+def keep_prep(store):
+    """A ``Recording`` keep function for ``batch_prep`` that stores the
+    first call's tensors (masses, intens, offs, lo, hi; clones, made on
+    the stream of the call), the peptide masses (the scorer's own),
+    its keywords and its outputs (clones)."""
+    def keep(out, *a, **k):
+        if not store:
+            store.update(args=tuple(x.clone() for x in a[:5]) + (a[5],),
+                         kw=dict(k), out=tuple(o.clone() for o in out))
+    return keep
+
+
 def keep_first(store, key):
     """A ``Recording`` keep function for ``rescore_indexed`` that stores,
     under ``key``, the first call's arguments as (args, keywords): args
@@ -733,9 +769,10 @@ def build_kernels(_cuda_build):
 
 def narrow_phases(torch, tsearch, pallas_stage1, db, spectra, dev, times,
                   rescore_in):
-    """Phases 3-5 (the narrow search). Returns the record, the stage-1
-    kernel's entry and phase 3's (params, batches, tables); the warm-up
-    batch's rescore inputs go into ``rescore_in["narrow"]``."""
+    """Phases 3-5 and 28 (the narrow search). Returns the record, the
+    stage-1 and batch-prep kernels' entries and phase 3's (params,
+    batches, tables); the warm-up batch's rescore inputs go into
+    ``rescore_in["narrow"]``."""
     batch = 8192
     warm, b1, b2 = (spectra[i * batch:(i + 1) * batch] for i in range(3))
     params = tsearch.SearchParams(
@@ -760,8 +797,10 @@ def narrow_phases(torch, tsearch, pallas_stage1, db, spectra, dev, times,
             return real_s1(lad, peaks, ints, **kw)
 
         tsearch.stage1_counts = recording
+        prep_in = {}
         try:
-            with capture_rescore(tsearch, rescore_in, "narrow"):
+            with capture_rescore(tsearch, rescore_in, "narrow"), \
+                    Recording(tsearch, "batch_prep", keep_prep(prep_in)):
                 t0 = time.perf_counter()
                 warm_tables = list(scorer.score_stream([warm]))
                 warm_s = time.perf_counter() - t0
@@ -781,15 +820,18 @@ def narrow_phases(torch, tsearch, pallas_stage1, db, spectra, dev, times,
 
         scorer._fused_dispatch = counting_dispatch
         trescore = rescore_mod()
+        tprep = prep_mod()
         torch.cuda.reset_peak_memory_stats()
         pallas_stage1.launches = 0
         trescore.launches = 0
+        tprep.launches = 0
         t0 = time.perf_counter()
         tables = list(scorer.score_stream([b1, b2]))
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         launches = pallas_stage1.launches
         r_launches = trescore.launches
+        p_launches = tprep.launches
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         scorer._fused_dispatch = real_dispatch
         lp = scorer.last_plan
@@ -798,10 +840,11 @@ def narrow_phases(torch, tsearch, pallas_stage1, db, spectra, dev, times,
             f"{lp['G_eff']}, W {lp['W']}, Ksel {lp['Ksel']}")
         log(f"# main path: 2 x {batch} spectra in {wall_s:.3f} s wall = "
             f"{2 * batch / wall_s:.1f} spectra/s; stage1_counts launches "
-            f"{launches} (per batch {per_batch}), rescore {r_launches}; "
-            f"peak device memory {peak_gib:.2f} GiB")
+            f"{launches} (per batch {per_batch}), rescore {r_launches}, "
+            f"batch_prep {p_launches}; peak device memory {peak_gib:.2f} GiB")
         assert len(per_batch) == 2 and all(n > 0 for n in per_batch), \
             per_batch
+        assert p_launches == 2, f"narrow: batch_prep launches {p_launches}"
         assert launches == sum(per_batch) > 0
         assert r_launches > 0, "narrow: the rescore kernel did not launch"
         n_psm = 0
@@ -822,7 +865,7 @@ def narrow_phases(torch, tsearch, pallas_stage1, db, spectra, dev, times,
     out.update(batch=batch, wall_s_2_batches=wall_s,
                spectra_per_s=2 * batch / wall_s,
                launches_per_batch=per_batch, rescore_launches=r_launches,
-               peak_device_gib=peak_gib,
+               prep_launches=p_launches, peak_device_gib=peak_gib,
                plan=[list(e) for e in lp["plan"]], seg_rows=lp["seg_rows"],
                batch_breakdown=breakdown)
 
@@ -950,7 +993,89 @@ def narrow_phases(torch, tsearch, pallas_stage1, db, spectra, dev, times,
         assert_tables_equal(t_gpu, t_cpu, "narrow card vs CPU")
         log(f"# narrow card vs CPU: {len(t_cpu)} PSMs of {len(sub)} spectra, "
             f"all {len(t_cpu.columns)} FeatureTable columns equal")
-    return out, kernel, (params, [b1, b2], tables)
+    k_prep = prep_phase(torch, tprep, scorer, warm, prep_in, times)
+    k_prep["launches"] = p_launches
+    return out, kernel, k_prep, (params, [b1, b2], tables)
+
+
+def prep_phase(torch, tprep, scorer, batch, captured, times):
+    """Phase 28: the batch-prep kernel at the inputs of phase 3's warm-up
+    batch ``batch`` (``captured``: see :func:`keep_prep`). Returns the
+    kernel's entry of the ``kernels`` line (less its launches)."""
+    sync = torch.cuda.synchronize
+    with Phase("28_batch_prep_kernel_vs_plain", times):
+        sync()
+        args, kw, out = captured["args"], captured["kw"], captured["out"]
+        masses, intens, offs, lo, hi, mono = args
+        P, Pk = kw["P"], kw["Pk"]
+        S, N, R = offs.numel() - 1, masses.numel(), lo.numel()
+        assert S == len(batch), (S, len(batch))
+        got = tprep.batch_prep(*args, **kw)
+        want = tprep.batch_prep_plain(*args, **kw)
+        sync()
+
+        def bits(x):
+            return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+        for pair, what in (((out, want), "the main path's call"),
+                           ((got, want), "the kernel called again")):
+            for i, part in enumerate(("block", "i0 / i1")):
+                assert torch.equal(bits(pair[0][i]), bits(pair[1][i])), (
+                    f"batch_prep: {what}'s {part} differs from the plain "
+                    f"version's")
+        t0 = time.perf_counter()
+        h_m, h_i, h_Pk = scorer._pad_peaks(batch)
+        rows = scorer._expand_rows(batch)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        assert h_Pk == Pk, (h_Pk, Pk)
+        block = out[0].cpu().numpy()
+        i01 = out[1].cpu().numpy()
+        np.testing.assert_array_equal(block.view(np.uint32),
+                                      np.stack([h_m, h_i]).view(np.uint32))
+        np.testing.assert_array_equal(i01[0], rows["i0"])
+        np.testing.assert_array_equal(i01[1], rows["i1"])
+        mono_h = scorer.db.table.mono
+        lo_h, hi_h = lo.cpu().numpy(), hi.cpu().numpy()
+        np.testing.assert_array_equal(
+            i01[0], np.searchsorted(mono_h, lo_h, side="left"))
+        np.testing.assert_array_equal(
+            i01[1], np.searchsorted(mono_h, hi_h, side="right"))
+        t0 = time.perf_counter()
+        scorer._prep(batch)
+        sync()
+        prep_ms = (time.perf_counter() - t0) * 1e3
+
+        def kern():
+            return tprep.batch_prep(*args, **kw)
+
+        km1 = exec_ms(kern, 50)
+        pm = exec_ms(lambda: tprep.batch_prep_plain(*args, **kw), 5)
+        km2 = exec_ms(kern, 50)
+        km = (km1 + km2) / 2
+        # bytes: the flat peaks, offsets and bounds read, the block and
+        # i0 / i1 written (the searches' loads of the peptide masses hit
+        # L2 mostly and are left out, so the bound stays a lower bound);
+        # compares: one a search step
+        read = 8 * N + 4 * (S + 1) + 8 * R
+        written = 8 * S * Pk + 8 * R
+        ops = 2 * R * max(int(P).bit_length(), 1)
+        bm, by = bound_ms(read + written, ops, F32_COMPARES_PER_S)
+        log(f"# batch_prep at phase 3's warm-up batch (S {S}, N {N} peaks, "
+            f"R {R} rows, P {P} masses, Pk {Pk}): the main path's block and "
+            f"i0 / i1, and the kernel's again, bit-equal to the plain "
+            f"version, to the host's _pad_peaks / _expand_rows and to "
+            f"np.searchsorted; kernel {km1:.4f} / {km2:.4f} ms, plain "
+            f"{pm:.3f} ms, bound {bm:.4f} ms ({by}; {read / 1e6:.2f} MB "
+            f"read, {written / 1e6:.2f} MB written at "
+            f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s), share of bound "
+            f"{bm / km:.3f}; the host's prep of the batch {host_ms:.1f} ms, "
+            f"Scorer._prep {prep_ms:.1f} ms (synchronised)")
+    return {"name": "batch_prep", "max_abs_err": 0, "ms": km,
+            "plain_ms": pm, "bound_ms": bm, "bound_by": by,
+            "bound_share": bm / km, "library_ms": None,
+            "host_prep_ms": host_ms, "prep_ms": prep_ms, "S": S, "N": N,
+            "R": R, "P": P, "Pk": Pk, "read_bytes": read,
+            "written_bytes": written}
 
 
 def open_phases(torch, tsearch, topen, pallas_sort, db, spectra, dev, times,
@@ -1012,10 +1137,12 @@ def open_phases(torch, tsearch, topen, pallas_sort, db, spectra, dev, times,
         scorer._fused_dispatch = counting_dispatch
         reruns0 = scorer.fused_reruns
         trescore = rescore_mod()
+        tprep = prep_mod()
         torch.cuda.reset_peak_memory_stats()
         for k in pallas_sort.launches:
             pallas_sort.launches[k] = 0
         trescore.launches = 0
+        tprep.launches = 0
         reset_peak(topen)
         t0 = time.perf_counter()
         tables = list(scorer.score_stream(batches))
@@ -1023,6 +1150,7 @@ def open_phases(torch, tsearch, topen, pallas_sort, db, spectra, dev, times,
         wall_s = time.perf_counter() - t0
         launches = dict(pallas_sort.launches)
         r_launches = trescore.launches
+        p_launches = tprep.launches
         peak_launches = dict(topen.launches)
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         scorer._fused_dispatch = real_dispatch
@@ -1038,7 +1166,7 @@ def open_phases(torch, tsearch, topen, pallas_sort, db, spectra, dev, times,
             f"{wall_s:.3f} s wall = {OPEN_BATCHES * B / wall_s:.1f} "
             f"spectra/s; sort launches {launches['row_sort']}, cluster "
             f"launches {launches['cluster_sort']}, rescore {r_launches}, "
-            f"{peak_launches}; {n_dev} of "
+            f"batch_prep {p_launches}, {peak_launches}; {n_dev} of "
             f"{len(per_batch)} dispatches device-planned; fused_reruns "
             f"{reruns} (overflowed batches scored again through the "
             f"two-dispatch path); peak device memory {peak_gib:.2f} GiB")
@@ -1046,6 +1174,7 @@ def open_phases(torch, tsearch, topen, pallas_sort, db, spectra, dev, times,
         assert all(n > 0 for n, _p in per_batch), per_batch
         assert launches["row_sort"] == sum(n for n, _p in per_batch)
         assert r_launches > 0, "open: the rescore kernel did not launch"
+        assert p_launches == len(batches), (p_launches, len(batches))
         assert n_dev > 0 and all(peak_launches[k] > 0 for k in PEAK_KERNELS), (
             peak_launches)
         for t, bt in zip(tables, batches):
@@ -1062,6 +1191,7 @@ def open_phases(torch, tsearch, topen, pallas_sort, db, spectra, dev, times,
     out.update(batch=B, batches=OPEN_BATCHES, wall_s=wall_s,
                spectra_per_s=OPEN_BATCHES * B / wall_s,
                rescore_launches=r_launches, peak_launches=peak_launches,
+               prep_launches=p_launches,
                sort_launches_per_dispatch=[n for n, _p in per_batch],
                device_planned=n_dev, reruns=reruns, peak_device_gib=peak_gib,
                plans=[p for _n, p in per_batch],
@@ -1412,15 +1542,18 @@ def runner_phase(torch, pallas_stage1, tmp, times):
             f"MiB, written in {time.perf_counter() - t0:.2f} s")
 
         trescore = rescore_mod()
+        tprep = prep_mod()
         torch.cuda.reset_peak_memory_stats()
         pallas_stage1.launches = 0
         trescore.launches = 0
+        tprep.launches = 0
         t0 = time.perf_counter()
         result = runner.run()
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
         launches = pallas_stage1.launches
         r_launches = trescore.launches
+        p_launches = tprep.launches
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         ph = result["phases"]
         log(f"# Runner phases (s): {ph}")
@@ -1428,13 +1561,15 @@ def runner_phase(torch, pallas_stage1, tmp, times):
             f"{n_spec / run_s:.1f} spectra/s whole run; search "
             f"{ph['search_s']:.3f} s = {n_spec / ph['search_s']:.1f} "
             f"spectra/s; stage1_counts launches {launches}, rescore "
-            f"{r_launches}; peak device memory {peak_gib:.2f} GiB")
+            f"{r_launches}, batch_prep {p_launches}; peak device memory "
+            f"{peak_gib:.2f} GiB")
         log(f"# Runner at 1% FDR: {result['q_spectrum']} PSMs, "
             f"{result['q_peptide']} peptides, {result['q_protein']} "
             f"proteins, {result['q_protein_group']} protein groups; "
             f"{len(result['features'])} PSMs reported")
         assert launches > 0, "the Runner did not launch the stage-1 kernel"
         assert r_launches > 0, "the Runner did not launch the rescore kernel"
+        assert p_launches > 0, "the Runner did not launch batch_prep"
         with open(os.path.join(out_dir, "results.sage.tsv")) as f:
             header = f.readline().rstrip("\n").split("\t")
             n_rows = sum(1 for _ in f)
@@ -1454,7 +1589,7 @@ def runner_phase(torch, pallas_stage1, tmp, times):
                whole_run_spectra_per_s=n_spec / run_s,
                search_spectra_per_s=n_spec / ph["search_s"],
                stage1_launches=launches, rescore_launches=r_launches,
-               peak_device_gib=peak_gib,
+               prep_launches=p_launches, peak_device_gib=peak_gib,
                q_spectrum=result["q_spectrum"], q_peptide=result["q_peptide"],
                q_protein=result["q_protein"],
                q_protein_group=result["q_protein_group"],
@@ -1524,8 +1659,10 @@ def tdf_phase(torch, pallas_stage1, runner, spectra, tmp, pyarrow, times):
             f"MiB of frames written in {time.perf_counter() - t0:.2f} s")
         out_dir = os.path.join(tmp, "tdf_out")
         trescore = rescore_mod()
+        tprep = prep_mod()
         pallas_stage1.launches = 0
         trescore.launches = 0
+        tprep.launches = 0
         t0 = time.perf_counter()
         result = rerun(runner, search, out_dir, mzml_paths=[d],
                        parquet=bool(pyarrow))
@@ -1533,6 +1670,7 @@ def tdf_phase(torch, pallas_stage1, runner, spectra, tmp, pyarrow, times):
         run_s = time.perf_counter() - t0
         launches = pallas_stage1.launches
         r_launches = trescore.launches
+        p_launches = tprep.launches
         ph = result["phases"]
         c = result["features"].columns
         near = float((np.abs(c["delta_mass"]) <= 20.5).mean())
@@ -1541,12 +1679,14 @@ def tdf_phase(torch, pallas_stage1, runner, spectra, tmp, pyarrow, times):
             f"{ph['read_s']:.3f} s; search {ph['search_s']:.3f} s = "
             f"{n_spec / ph['search_s']:.1f} spectra/s; write {ph['write_s']:.3f}"
             f" s ({out_name}); stage1_counts launches {launches}, rescore "
-            f"{r_launches}; {result['q_spectrum']} PSMs at 1% FDR; "
+            f"{r_launches}, batch_prep {p_launches}; "
+            f"{result['q_spectrum']} PSMs at 1% FDR; "
             f"{near:.3f} of the PSMs "
             f"within 20 ppm; ion mobility {float(c['ims'].min()):.3f}-"
             f"{float(c['ims'].max()):.3f}; phases {ph}")
         assert launches > 0, "the .d run did not launch the stage-1 kernel"
         assert r_launches > 0, "the .d run did not launch the rescore kernel"
+        assert p_launches > 0, "the .d run did not launch batch_prep"
         assert near > 0.9, near
         assert os.path.exists(os.path.join(out_dir, out_name))
         if pyarrow:
@@ -1557,6 +1697,7 @@ def tdf_phase(torch, pallas_stage1, runner, spectra, tmp, pyarrow, times):
                    search_spectra_per_s=n_spec / ph["search_s"],
                    read_s=ph["read_s"], write_s=ph["write_s"],
                    stage1_launches=launches, rescore_launches=r_launches,
+                   prep_launches=p_launches,
                    q_spectrum=result["q_spectrum"], psms=len(c["ims"]),
                    psms_within_20ppm=near)
         rec.update(ms1_read(d))
@@ -1802,6 +1943,9 @@ def sharded_phases(torch, mods, db, narrow_fused, open_fused, dev, times):
     pallas_stage1, pallas_sort = mods["stage1"], mods["sort"]
     topen = mods["open"]
     trescore = rescore_mod()
+    # the grid keeps the host's prep: no batch_prep launch in 22-23
+    tprep = prep_mod()
+    tprep.launches = 0
     rec = {"narrow": {}, "open": {}, "rescore_launches": 0}
     with Phase("22_sharded_narrow", times):
         params, (b1, _b2), tables = narrow_fused
@@ -1948,6 +2092,8 @@ def sharded_phases(torch, mods, db, narrow_fused, open_fused, dev, times):
             assert torch.equal(got.cpu(), _plain_sort(pallas_sort, x.cpu()))
             log(f"# sharded open: {kind} equals its plain version on a "
                 f"[{x.shape[0]}, {x.shape[1]}] slice of the grid's rows")
+    rec["prep_launches"] = tprep.launches
+    assert rec["prep_launches"] == 0, "the grid launched batch_prep"
     return rec
 
 
@@ -1970,8 +2116,10 @@ def sharded_runner_phase(torch, pallas_stage1, runner, search, tsv11, tmp,
         sharding.local_devices = lambda device="cuda": [dev] * 4
         runner._make_scorer = make
         trescore = rescore_mod()
+        tprep = prep_mod()
         pallas_stage1.launches = 0
         trescore.launches = 0
+        tprep.launches = 0
         t0 = time.perf_counter()
         try:
             result = rerun(runner, search, out_dir, mesh_shape=(2, 2))
@@ -1982,9 +2130,11 @@ def sharded_runner_phase(torch, pallas_stage1, runner, search, tsv11, tmp,
         run_s = time.perf_counter() - t0
         launches = pallas_stage1.launches
         r_launches = trescore.launches
+        p_launches = tprep.launches
         with open(os.path.join(out_dir, "results.sage.tsv"), "rb") as f:
             tsv = f.read()
         assert kinds == ["ShardedScorer"], kinds
+        assert p_launches == 0, "the grid Runner launched batch_prep"
         assert launches > 0, "the grid Runner did not launch stage 1"
         assert r_launches > 0, "the grid Runner did not launch the rescore"
         assert tsv == tsv11, "grid results.sage.tsv differs from phase 11's"
@@ -1995,7 +2145,7 @@ def sharded_runner_phase(torch, pallas_stage1, runner, search, tsv11, tmp,
             f"{launches}, rescore {r_launches}; results.sage.tsv "
             f"({len(tsv)} bytes, {n_spec} PSMs) byte-equal to phase 11's")
     return dict(run_s=run_s, phases=ph, stage1_launches=launches,
-                rescore_launches=r_launches)
+                rescore_launches=r_launches, prep_launches=p_launches)
 
 
 def two_dispatch_phase(torch, tsearch, name, db, fused, kernel, counts,
@@ -2197,10 +2347,12 @@ def banded_phase(torch, mods, db, spectra, times, name, frags,
         calls = []
         measured0 = scorer.fused_reruns
         trescore = rescore_mod()
+        tprep = prep_mod()
         pallas_stage1.launches = 0
         for k in pallas_sort.launches:
             pallas_sort.launches[k] = 0
         trescore.launches = 0
+        tprep.launches = 0
         reset_peak(topen)
         torch.cuda.reset_peak_memory_stats()
         with Recording(tbanded.NarrowBanded, "dispatch",
@@ -2211,6 +2363,7 @@ def banded_phase(torch, mods, db, spectra, times, name, frags,
             wall_s = time.perf_counter() - t0
         launches = dict(pallas_sort.launches)
         r_launches = trescore.launches
+        p_launches = tprep.launches
         peak_launches = dict(topen.launches)
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         lp = dict(scorer.last_plan)
@@ -2223,9 +2376,11 @@ def banded_phase(torch, mods, db, spectra, times, name, frags,
             f"totmax {totmax}, overflow reruns in the phase {reruns} (in "
             f"the measured batch {measured_reruns}); "
             f"launches {launches}, stage1_counts {pallas_stage1.launches}, "
-            f"rescore {r_launches}, {peak_launches}; peak device memory "
+            f"rescore {r_launches}, batch_prep {p_launches}, "
+            f"{peak_launches}; peak device memory "
             f"{peak_gib:.2f} GiB")
         assert calls and lp.get("banded"), f"{name}: no banded dispatch"
+        assert p_launches == 1, f"{name}: batch_prep launches {p_launches}"
         assert r_launches > 0, f"{name}: the rescore kernel did not launch"
         assert all(peak_launches[k] > 0 for k in PEAK_KERNELS), peak_launches
         assert launches["row_sort" if not lowres else "cluster_sort"] > 0, (
@@ -2239,7 +2394,8 @@ def banded_phase(torch, mods, db, spectra, times, name, frags,
                    nbcov=[c[3] for c in calls], F=[c[2] for c in calls],
                    totmax=totmax, overflow_reruns=reruns,
                    launches=launches, rescore_launches=r_launches,
-                   peak_launches=peak_launches, peak_device_gib=peak_gib)
+                   prep_launches=p_launches, peak_launches=peak_launches,
+                   peak_device_gib=peak_gib)
 
         # the candidate-major stage 1 on the same batch
         with EnvSet("SAGE_TPU_NARROW_BANDED", "0"):
@@ -2997,6 +3153,7 @@ def large_peaks_phase(torch, mods, db, times, n_spec=LARGE_PEAK_SPECTRA):
     version, bit-equal, and timed (kernel, plain, kernel)."""
     tsearch, pallas_stage1, trescore = (mods["search"], mods["stage1"],
                                         mods["rescore"])
+    tprep = prep_mod()
     from sage_tpu_torch.spectrum.processor import (Precursor, RawSpectrum,
                                                    SpectrumProcessor)
 
@@ -3029,6 +3186,7 @@ def large_peaks_phase(torch, mods, db, times, n_spec=LARGE_PEAK_SPECTRA):
                 assert scorer.Z == 3, scorer.Z
                 pallas_stage1.launches = 0
                 trescore.launches = 0
+                tprep.launches = 0
                 tsearch.stage1_counts = recording
                 try:
                     with capture_rescore(tsearch, store, fused):
@@ -3039,7 +3197,8 @@ def large_peaks_phase(torch, mods, db, times, n_spec=LARGE_PEAK_SPECTRA):
                 finally:
                     tsearch.stage1_counts = real_s1
                 launches[fused] = {"stage1_counts": pallas_stage1.launches,
-                                   "rescore": trescore.launches}
+                                   "rescore": trescore.launches,
+                                   "batch_prep": tprep.launches}
                 assert all(v > 0 for v in launches[fused].values()), (
                     fused, launches[fused])
                 log(f"# 26 Scorer at {LARGE_PEAKS} peaks, SAGE_TPU_FUSED="
@@ -3168,8 +3327,10 @@ def chimera_phase(torch, tsearch, pallas_stage1, db, times):
 
         scorer._remove_matched = timed_rm
         trescore = rescore_mod()
+        tprep = prep_mod()
         pallas_stage1.launches = 0
         trescore.launches = 0
+        tprep.launches = 0
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         t = list(scorer.score_stream([spectra]))[0]
@@ -3177,8 +3338,10 @@ def chimera_phase(torch, tsearch, pallas_stage1, db, times):
         wall_s = time.perf_counter() - t0
         launches = pallas_stage1.launches
         r_launches = trescore.launches
+        p_launches = tprep.launches
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         assert launches > 0, "chimera: stage1_counts not launched"
+        assert p_launches == 0, "chimera: batch_prep launched"
         assert r_launches > 0, "chimera: the rescore kernel not launched"
         c = t.columns
         si, rank, pep = c["spec_idx"], c["rank"], c["peptide_idx"]
@@ -3213,7 +3376,8 @@ def chimera_phase(torch, tsearch, pallas_stage1, db, times):
                 spectra_per_s=len(spectra) / wall_s, psms=len(t),
                 first_share=first, second_share=second, both_share=both,
                 remove_matched_s=sum(removal), launches=launches,
-                rescore_launches=r_launches, peak_device_gib=peak_gib)
+                rescore_launches=r_launches, prep_launches=p_launches,
+                peak_device_gib=peak_gib)
 
 
 def write_mzml_scans(path, scans):
@@ -3433,6 +3597,7 @@ def main():
 
     # the package comes first: without it nothing below can run
     from sage_tpu_torch.ops import _cuda_build, pallas_sort, pallas_stage1
+    from sage_tpu_torch.ops import batch_prep as tprep
     from sage_tpu_torch.ops import narrow_banded as tbanded
     from sage_tpu_torch.ops import rescore as trescore
     from sage_tpu_torch.ops import open_search as topen
@@ -3476,7 +3641,7 @@ def main():
         # phase 27
         peak_in = {"open": {}, "two_dispatch_open": {}, "banded": {},
                    "banded_lowres": {}}
-        narrow, k_stage1, narrow_fused = narrow_phases(
+        narrow, k_stage1, k_prep, narrow_fused = narrow_phases(
             torch, tsearch, pallas_stage1, db, spectra, dev, times,
             rescore_in)
         open_rec, k_sort, open_fused = open_phases(
@@ -3487,27 +3652,35 @@ def main():
     def reset_stage1():
         pallas_stage1.launches = 0
         trescore.launches = 0
+        tprep.launches = 0
 
     def reset_sorts():
         for k in pallas_sort.launches:
             pallas_sort.launches[k] = 0
         trescore.launches = 0
+        tprep.launches = 0
         reset_peak(topen)
 
     td_narrow = two_dispatch_phase(
         torch, tsearch, "13_two_dispatch_narrow", db, narrow_fused,
         "stage1_counts",
         (reset_stage1, lambda: {"stage1_counts": pallas_stage1.launches,
-                                "rescore": trescore.launches}),
+                                "rescore": trescore.launches,
+                                "batch_prep": tprep.launches}),
         times, capture=(rescore_in, "two_dispatch"))
     td_open = two_dispatch_phase(
         torch, tsearch, "14_two_dispatch_open", db, open_fused, "row_sort",
         (reset_sorts, lambda: {**pallas_sort.launches, **topen.launches,
-                               "rescore": trescore.launches}),
+                               "rescore": trescore.launches,
+                               "batch_prep": tprep.launches}),
         times, open_search=True,
         peak_capture=(topen, peak_in["two_dispatch_open"]))
     assert all(td_open["launches_all"][k] > 0 for k in PEAK_KERNELS), (
         td_open["launches_all"])
+    # one batch_prep a batch on the two-dispatch paths too
+    for td, fused in ((td_narrow, narrow_fused), (td_open, open_fused)):
+        assert td["launches_all"]["batch_prep"] == len(fused[1]), (
+            td["launches_all"])
 
     mods = {"search": tsearch, "banded": tbanded, "open": topen,
             "sort": pallas_sort, "stage1": pallas_stage1,
@@ -3625,8 +3798,24 @@ def main():
                 "banded_lowres": lowres["peak_launches"][name],
                 "sharded_open": grid["peak_launches"][name]},
         })
+    # the batch-prep kernel's main path is phase 3's narrow batch; the
+    # paths that keep the host's prep (17, 22-24) read 0
+    k_prep["launches_by_path"] = {
+        "narrow_fused": narrow["prep_launches"],
+        "open_fused": open_rec["prep_launches"],
+        "runner": runner_rec["prep_launches"],
+        "runner_tdf": tdf_rec["prep_launches"],
+        "two_dispatch_narrow": td_narrow["launches_all"]["batch_prep"],
+        "two_dispatch_open": td_open["launches_all"]["batch_prep"],
+        "banded": banded["prep_launches"],
+        "banded_lowres": lowres["prep_launches"],
+        "chimera": chim["prep_launches"],
+        "sharded": grid["prep_launches"],
+        "sharded_runner": grid_runner["prep_launches"],
+        "large_peaks_fused": large["launches"]["1"]["batch_prep"],
+        "large_peaks_two_dispatch": large["launches"]["0"]["batch_prep"]}
     kernels = {"kernels": []}
-    for k in (k_stage1, k_row, k_cluster, k_rescore, *k_peak):
+    for k in (k_stage1, k_row, k_cluster, k_rescore, *k_peak, k_prep):
         src, replaces = KERNELS[k["name"]]
         kernels["kernels"].append({
             "name": k["name"], "route": "cuda", "source": src,

@@ -68,6 +68,7 @@ from .open_search import (
     covered_bands,
     spectrum_window_union,
 )
+from .batch_prep import BatchColumns, batch_prep
 from .narrow_banded import NarrowBanded
 from .pallas_stage1 import stage1_counts
 from .rescore import (
@@ -433,6 +434,8 @@ class _DeviceTables:
     * ``lad_full``  [P_pad, S, L] f32: complete ladders (only the
       ion < len-1 validity applied) for the full rescore, which ignores
       min_ion_index (scoring.rs:675-767).
+    * ``mono`` [P_pad] f32: the ascending peptide masses, +inf in the
+      pads, that ``batch_prep`` searches the precursor windows in.
 
     A candidate's [S, L] row is contiguous in both."""
 
@@ -456,7 +459,7 @@ class _DeviceTables:
         )
         nterm = _to_dev(np.pad(t.nterm[sl], (0, pad)).astype(np.float32),
                         device)
-        mono = _to_dev(
+        self.mono = mono = _to_dev(
             np.pad(t.mono[sl], (0, pad),
                    constant_values=np.inf).astype(np.float32),
             device,
@@ -545,6 +548,7 @@ class Scorer:
         self._psm_counter = 1
         self._open: Optional[OpenSearcher] = None
         self._nb: Optional[NarrowBanded] = None
+        self._stream = None
         self.fused_reruns = 0
         self.last_plan: Optional[dict] = None
 
@@ -622,93 +626,115 @@ class Scorer:
     # Host orchestration
     # ------------------------------------------------------------------
 
-    def _expand_rows(self, spectra: Sequence[ProcessedSpectrum]):
+    def _expand_rows(self, spectra: Sequence[ProcessedSpectrum],
+                     cols: Optional[BatchColumns] = None):
         """initial_hits charge/isotope expansion (scoring.rs:384-462): one
         query row per (spectrum, precursor charge, isotope error).
 
-        Vectorized: all precursor-window bounds and peptide-table binary
-        searches run as whole-array numpy f32 ops (elementwise identical to
-        the reference's scalar f32 math). Returns a dict of row arrays
-        {si, z, iso, i0, i1}."""
-        p = self.params
-        mono = self.db.table.mono
-        n = len(spectra)
-        prec_mz = np.empty(n, np.float32)
-        prec_z = np.zeros(n, np.int32)
-        for si, spec in enumerate(spectra):
-            if not spec.precursors:
-                raise ValueError(f"missing MS1 precursor for {spec.id}")
-            prec = spec.precursors[0]
-            prec_mz[si] = F32(prec.mz)
-            if prec.charge is not None:
-                prec_z[si] = prec.charge
-        mz = prec_mz - F32(PROTON)
+        The host's whole row prep, and the reference that ``_prep``'s
+        columns and ``batch_prep`` are held to: the window bounds
+        (``_window_rows``) and the peptide-table binary searches
+        (``_search_rows``) run as whole-array numpy f32 ops (elementwise
+        identical to the reference's scalar f32 math). ``cols``: the
+        batch's ``BatchColumns``, where the caller has them. Returns a
+        dict of row arrays {si, z, iso, i0, i1}."""
+        if cols is None:
+            cols = BatchColumns(spectra)
+        if self.params.wide_window:
+            rows = self._wide_window_rows(spectra, cols.prec_mz)
+        else:
+            rows = self._window_rows(cols.prec_mz, cols.prec_z)
+        return self._search_rows(rows)
 
+    def _search_rows(self, rows):
+        """The rows' peptide-table ranges on the host: their bounds
+        ``lo`` and ``hi`` replaced by i0 (the masses below lo) and i1
+        (the masses at or below hi), by ``np.searchsorted``."""
+        mono = self.db.table.mono
+        rows["i0"] = np.searchsorted(mono, rows.pop("lo"),
+                                     side="left").astype(np.int32)
+        rows["i1"] = np.searchsorted(mono, rows.pop("hi"),
+                                     side="right").astype(np.int32)
+        return rows
+
+    def _row_axes(self):
+        """The isotope errors and the swept precursor charges."""
+        p = self.params
         if p.min_isotope_err != p.max_isotope_err:
             iso_list = np.arange(
                 p.min_isotope_err, p.max_isotope_err + 1, dtype=np.int32
             )
         else:
             iso_list = np.zeros(1, dtype=np.int32)
-        n_iso = iso_list.size
-        zmin, zmax = p.min_precursor_charge, p.max_precursor_charge
-        z_sweep = np.arange(zmin, zmax + 1, dtype=np.int32)
-        nz = z_sweep.size
+        z_sweep = np.arange(p.min_precursor_charge,
+                            p.max_precursor_charge + 1, dtype=np.int32)
+        return iso_list, z_sweep
 
-        if p.wide_window:
-            # Per-spectrum isolation windows differ and the scaled-tolerance
-            # bounds must keep the reference's scalar f32 op order, so this
-            # (rarer) mode stays a scalar loop.
-            si_l, z_l, iso_l, lo_l, hi_l = [], [], [], [], []
-            for si, spec in enumerate(spectra):
-                base = spec.precursors[0].isolation_window or Tolerance(
-                    "da", -2.4, 2.4
-                )
-                for z in z_sweep:
-                    tol = base * float(z)
-                    pm = F32(mz[si] * F32(z))
-                    for iso in iso_list:
-                        qm = F32(pm - F32(F32(iso) * NEUTRON))
-                        lo, hi = tol.bounds(qm)
-                        si_l.append(si)
-                        z_l.append(int(z))
-                        iso_l.append(int(iso))
-                        lo_l.append(lo)
-                        hi_l.append(hi)
-            si_rows = np.asarray(si_l, np.int32)
-            z_rows = np.asarray(z_l, np.int32)
-            iso_rows = np.asarray(iso_l, np.int32)
-            lo_all = np.asarray(lo_l, np.float32)
-            hi_all = np.asarray(hi_l, np.float32)
-        else:
-            ann = (prec_z > 0) & (not p.override_precursor_charge)
-            ann_idx = np.flatnonzero(ann)
-            sw_idx = np.flatnonzero(~ann)
-            si_a = np.repeat(ann_idx.astype(np.int32), n_iso)
-            z_a = np.repeat(prec_z[ann_idx], n_iso)
-            iso_a = np.tile(iso_list, ann_idx.size)
-            si_s = np.repeat(sw_idx.astype(np.int32), nz * n_iso)
-            z_s = np.tile(np.repeat(z_sweep, n_iso), sw_idx.size)
-            iso_s = np.tile(iso_list, nz * sw_idx.size)
-            si_rows = np.concatenate([si_a, si_s])
-            z_rows = np.concatenate([z_a, z_s])
-            iso_rows = np.concatenate([iso_a, iso_s])
-            order = np.argsort(si_rows, kind="stable")
-            si_rows, z_rows, iso_rows = (
-                si_rows[order], z_rows[order], iso_rows[order],
-            )
-            pm = (mz[si_rows] * z_rows.astype(np.float32)).astype(np.float32)
-            qm = pm - (iso_rows.astype(np.float32) * F32(NEUTRON))
-            lo_all, hi_all = p.precursor_tol.bounds(qm)
-
-        i0 = np.searchsorted(mono, lo_all, side="left").astype(np.int32)
-        i1 = np.searchsorted(mono, hi_all, side="right").astype(np.int32)
+    def _window_rows(self, prec_mz, prec_z):
+        """The query rows and their precursor-window bounds, from each
+        spectrum's f32 precursor m/z and charge (0: none): rows by
+        spectrum, then charge (the file's, or the swept range), then
+        isotope error. Returns {si, z, iso, lo, hi}."""
+        p = self.params
+        mz = prec_mz - F32(PROTON)
+        iso_list, z_sweep = self._row_axes()
+        n_iso, nz = iso_list.size, z_sweep.size
+        ann = (prec_z > 0) & (not p.override_precursor_charge)
+        ann_idx = np.flatnonzero(ann)
+        sw_idx = np.flatnonzero(~ann)
+        si_a = np.repeat(ann_idx.astype(np.int32), n_iso)
+        z_a = np.repeat(prec_z[ann_idx], n_iso)
+        iso_a = np.tile(iso_list, ann_idx.size)
+        si_s = np.repeat(sw_idx.astype(np.int32), nz * n_iso)
+        z_s = np.tile(np.repeat(z_sweep, n_iso), sw_idx.size)
+        iso_s = np.tile(iso_list, nz * sw_idx.size)
+        si_rows = np.concatenate([si_a, si_s])
+        z_rows = np.concatenate([z_a, z_s])
+        iso_rows = np.concatenate([iso_a, iso_s])
+        order = np.argsort(si_rows, kind="stable")
+        si_rows, z_rows, iso_rows = (
+            si_rows[order], z_rows[order], iso_rows[order],
+        )
+        pm = (mz[si_rows] * z_rows.astype(np.float32)).astype(np.float32)
+        qm = pm - (iso_rows.astype(np.float32) * F32(NEUTRON))
+        lo, hi = p.precursor_tol.bounds(qm)
         return {
             "si": si_rows.astype(np.int32),
             "z": z_rows.astype(np.int32),
             "iso": iso_rows.astype(np.int32),
-            "i0": i0,
-            "i1": i1,
+            "lo": lo,
+            "hi": hi,
+        }
+
+    def _wide_window_rows(self, spectra, prec_mz):
+        """``_window_rows`` for wide-window search: per-spectrum isolation
+        windows differ and the scaled-tolerance bounds must keep the
+        reference's scalar f32 op order, so this (rarer) mode stays a
+        scalar loop."""
+        mz = prec_mz - F32(PROTON)
+        iso_list, z_sweep = self._row_axes()
+        si_l, z_l, iso_l, lo_l, hi_l = [], [], [], [], []
+        for si, spec in enumerate(spectra):
+            base = spec.precursors[0].isolation_window or Tolerance(
+                "da", -2.4, 2.4
+            )
+            for z in z_sweep:
+                tol = base * float(z)
+                pm = F32(mz[si] * F32(z))
+                for iso in iso_list:
+                    qm = F32(pm - F32(F32(iso) * NEUTRON))
+                    lo, hi = tol.bounds(qm)
+                    si_l.append(si)
+                    z_l.append(int(z))
+                    iso_l.append(int(iso))
+                    lo_l.append(lo)
+                    hi_l.append(hi)
+        return {
+            "si": np.asarray(si_l, np.int32),
+            "z": np.asarray(z_l, np.int32),
+            "iso": np.asarray(iso_l, np.int32),
+            "lo": np.asarray(lo_l, np.float32),
+            "hi": np.asarray(hi_l, np.float32),
         }
 
     def _peaks_device(self, masses, intens):
@@ -717,23 +743,92 @@ class Scorer:
         return _to_dev(np.stack([masses, intens]), self.device)
 
     def _pad_peaks(self, spectra: Sequence[ProcessedSpectrum]):
-        S = len(spectra)
-        lens = np.fromiter(
-            (len(s) for s in spectra), dtype=np.int64, count=S
-        )
-        Pk = int(max(lens.max() if S else 1, 1))
-        Pk = int(np.ceil(Pk / 32) * 32)
-        masses = np.full((S, Pk), np.inf, dtype=np.float32)
-        intens = np.full((S, Pk), -1.0, dtype=np.float32)
-        if S:
-            rows = np.repeat(np.arange(S), lens)
-            offs = np.concatenate([[0], np.cumsum(lens)[:-1]])
-            cols = np.arange(int(lens.sum())) - np.repeat(offs, lens)
-            masses[rows, cols] = np.concatenate([s.masses for s in spectra])
-            intens[rows, cols] = np.concatenate(
-                [s.intensities for s in spectra]
+        """The host's padded peaks (masses, intensities, Pk), from the
+        batch's columns: the prep of the paths that keep the host's
+        (chimera, wide window, the grid) and the reference for
+        ``batch_prep``'s block."""
+        cols = BatchColumns(spectra)
+        return cols.masses, cols.intens, cols.Pk
+
+    def _prep(self, spectra: Sequence[ProcessedSpectrum]):
+        """The ``search.prep`` of ``score_table`` and ``score_stream``:
+        the batch read once into columns (``BatchColumns``), the query
+        rows' window bounds on the host (``_window_rows``), then one
+        ``batch_prep`` that pads the peaks into the device block
+        [2, B, Pk] and searches the rows' bounds in the device's peptide
+        masses. Wide-window search keeps the host's prep. Returns
+        (cols, peaks_dev, rows), ``rows`` as ``_expand_rows`` gives
+        them; the host pads ``cols.masses`` and ``cols.intens`` only
+        where a later step reads them."""
+        cols = BatchColumns(spectra)
+        if self.params.wide_window:
+            rows = self._search_rows(
+                self._wide_window_rows(spectra, cols.prec_mz))
+            return cols, self._peaks_device(cols.masses, cols.intens), rows
+        rows = self._window_rows(cols.prec_mz, cols.prec_z)
+        peaks_dev, i01 = self._batch_prep(cols, rows.pop("lo"),
+                                          rows.pop("hi"))
+        rows["i0"], rows["i1"] = i01[0], i01[1]
+        return cols, peaks_dev, rows
+
+    def _batch_prep(self, cols: BatchColumns, lo, hi):
+        """``batch_prep`` for one batch: its flat peaks, bounds and
+        offsets staged in one f32 host buffer (pinned on a card, from
+        torch's caching host allocator, so buffers are reused once their
+        copies are done) and copied in once. On a card the copy, the
+        kernel and the download of i0 / i1 run on a stream of their own,
+        so they do not queue behind the previous batch's work; the
+        current stream waits for them before anything reads the block.
+        The ``search.upload`` span covers the copy, a ``search.fetch``
+        span the host's wait for i0 / i1. Returns (peaks_dev
+        [2, B, Pk], i01 i32 [2, R] on the host)."""
+        S, N, R = len(cols), cols.n_peaks, lo.size
+        card = self.device.type == "cuda"
+        host = torch.empty(2 * N + 2 * R + S + 1, dtype=torch.float32,
+                           pin_memory=card)
+        buf = host.numpy()
+        cols.flatten_into(buf[:N], buf[N : 2 * N])
+        buf[2 * N : 2 * N + R] = lo
+        buf[2 * N + R : 2 * N + 2 * R] = hi
+        buf[2 * N + 2 * R :].view(np.int32)[:] = cols.offs
+        tabs = self.tables
+
+        def launch(t):
+            return batch_prep(
+                t[:N], t[N : 2 * N], t[2 * N + 2 * R :].view(torch.int32),
+                t[2 * N : 2 * N + R], t[2 * N + R : 2 * N + 2 * R],
+                tabs.mono, P=tabs.P_real, Pk=cols.Pk,
             )
-        return masses, intens, Pk
+
+        with trace.span("search.upload"):
+            trace.count("search.upload_bytes", host.numel() * 4)
+            if card:
+                stream = self._prep_stream()
+                with torch.cuda.stream(stream):
+                    staged = host.to(self.device, non_blocking=True)
+        if not card:
+            peaks, i01 = launch(host)
+            return peaks, i01.numpy()
+        with torch.cuda.stream(stream):
+            peaks, i01 = launch(staged)
+            back = torch.empty((2, R), dtype=torch.int32, pin_memory=True)
+            back.copy_(i01, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(stream)
+        current = torch.cuda.current_stream(self.device)
+        peaks.record_stream(current)
+        current.wait_event(done)
+        with trace.span("search.fetch"):
+            done.synchronize()
+        return peaks, back.numpy()
+
+    def _prep_stream(self):
+        """The card's stream for ``_batch_prep``, at the highest
+        priority, so its kernel's blocks go before queued stage-1
+        blocks."""
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device, priority=-1)
+        return self._stream
 
     def score(self, spectra: Sequence[ProcessedSpectrum]) -> List[Feature]:
         """Score a batch of MS2 spectra; returns Feature objects (tests /
@@ -749,36 +844,31 @@ class Scorer:
             return self._score_chimera(spectra)
         bid = trace.new_batch()
         with trace.span("search.prep", bid):
-            masses, intens, Pk = self._pad_peaks(spectra)
-            peaks_dev = self._peaks_device(masses, intens)
-            rows = self._expand_rows(spectra)
+            cols, peaks_dev, rows = self._prep(spectra)
         with trace.span("search.dispatch", bid):
-            fd = self._fused_dispatch(spectra, masses, Pk, peaks_dev,
-                                      rows=rows)
+            fd = self._fused_dispatch(spectra, cols, peaks_dev, rows=rows)
         if fd is None:
-            return self._two_dispatch(spectra, masses, intens, Pk, peaks_dev,
-                                      rows, bid)
+            return self._two_dispatch(spectra, cols, peaks_dev, rows, bid)
         with trace.span("search.finalize", bid):
-            t = self._fused_finalize(spectra, fd, masses, intens, Pk)
+            t = self._fused_finalize(fd, cols)
         if t is not None:
             return t
         self._note_rerun()
         with trace.span("search.rerun", bid):
-            return self._two_dispatch(spectra, masses, intens, Pk, peaks_dev,
-                                      rows)
+            return self._two_dispatch(spectra, cols, peaks_dev, rows)
 
-    def _two_dispatch(self, spectra, masses, intens, Pk, peaks_dev, rows,
-                      batch=None):
+    def _two_dispatch(self, spectra, cols, peaks_dev, rows, batch=None):
         """Stage 1 and the host merge, then the per-item rescore and the
-        host selection: the path of every batch the fused path declines.
-        ``batch``: the batch id of its spans (else the enclosing span's)."""
+        host selection: the path of every batch the fused path declines
+        (``cols``: the batch's ``BatchColumns``). ``batch``: the batch id
+        of its spans (else the enclosing span's)."""
         with trace.span("search.dispatch", batch):
-            d1 = self._prelim_dispatch(spectra, masses=masses,
+            d1 = self._prelim_dispatch(spectra, masses=cols.masses,
                                        peaks_dev=peaks_dev, rows=rows)
         with trace.span("search.finalize", batch):
             prelim = self._prelim_finalize(d1)
-        return self._features_table(spectra, prelim, masses, intens, Pk,
-                                    peaks_dev=peaks_dev, batch=batch)
+        return self._features_table(cols, prelim, peaks_dev=peaks_dev,
+                                    batch=batch)
 
     def _note_rerun(self):
         """Count and log a fused batch that _fused_finalize declined (a
@@ -806,20 +896,18 @@ class Scorer:
         def admit(batch):
             bid = trace.new_batch()
             with trace.span("search.prep", bid):
-                masses, intens, Pk = self._pad_peaks(batch)
-                peaks_dev = self._peaks_device(masses, intens)
-                rows = self._expand_rows(batch)
+                cols, peaks_dev, rows = self._prep(batch)
             e = {
-                "bid": bid, "batch": batch, "masses": masses,
-                "intens": intens, "Pk": Pk, "peaks_dev": peaks_dev,
-                "rows": rows,
+                "bid": bid, "batch": batch, "cols": cols,
+                "peaks_dev": peaks_dev, "rows": rows,
             }
             with trace.span("search.dispatch", bid):
-                e["fd"] = self._fused_dispatch(batch, masses, Pk, peaks_dev,
+                e["fd"] = self._fused_dispatch(batch, cols, peaks_dev,
                                                rows=rows)
                 if e["fd"] is None:
                     e["d1"] = self._prelim_dispatch(
-                        batch, masses=masses, peaks_dev=peaks_dev, rows=rows
+                        batch, masses=cols.masses, peaks_dev=peaks_dev,
+                        rows=rows,
                     )
             return e
 
@@ -832,32 +920,30 @@ class Scorer:
                     e["prelim"] = self._prelim_finalize(e["d1"])
                 with trace.span("search.dispatch", bid):
                     e["d2"] = self._stage2_dispatch(
-                        e["prelim"], e["intens"], e["peaks_dev"]
+                        e["prelim"], e["cols"].intens, e["peaks_dev"]
                     )
             else:
                 with trace.span("search.fetch", bid):
                     packed_np = e["fd"]["fused"].cpu().numpy()
                 with trace.span("search.finalize", bid):
                     e["table"] = self._fused_finalize(
-                        e["batch"], e["fd"], e["masses"], e["intens"],
-                        e["Pk"], packed=packed_np,
+                        e["fd"], e["cols"], packed=packed_np,
                     )
             return e
 
         def finish(e):
+            cols = e["cols"]
             if e["fd"] is None:
                 with trace.span("search.finalize", e["bid"]):
                     return self._stage2_finalize(
-                        e["batch"], e["prelim"], e["d2"],
-                        self.params.report_psms, e["masses"], e["Pk"],
+                        cols, e["prelim"], e["d2"], self.params.report_psms,
                     )
             if e["table"] is not None:
                 return e["table"]
             self._note_rerun()
             with trace.span("search.rerun", e["bid"]):
-                return self._two_dispatch(e["batch"], e["masses"],
-                                          e["intens"], e["Pk"],
-                                          e["peaks_dev"], e["rows"])
+                return self._two_dispatch(e["batch"], cols, e["peaks_dev"],
+                                          e["rows"])
 
         yield from pipeline_stream(batches, admit, advance, finish)
 
@@ -1138,12 +1224,13 @@ class Scorer:
         fallbacks."""
         return self._ksel() + 5
 
-    def _fused_dispatch(self, spectra, masses, Pk, peaks_dev, rows=None):
+    def _fused_dispatch(self, spectra, cols, peaks_dev, rows=None):
         """Plan the batch's stage-1 segments (narrow) or open-search
         pseudo-segments, launch them and the merge pass; returns the
         dispatch dict that _fused_finalize consumes, or None where the
         fused path's preconditions do not hold (the caller takes the
-        two-dispatch path)."""
+        two-dispatch path). ``cols``: the batch's ``BatchColumns``; only
+        the open regime's plan reads its host-padded masses."""
         import os
 
         p = self.params
@@ -1159,6 +1246,7 @@ class Scorer:
             return None
         if os.environ.get("SAGE_TPU_FUSED", "1") == "0":
             return None
+        Pk = cols.Pk
         if rows is None:
             rows = self._expand_rows(spectra)
         # file-annotated precursor charges bypass max_precursor_charge, so
@@ -1191,7 +1279,7 @@ class Scorer:
         open_sticky = None
         if open_regime:
             planned = self._open_plan(
-                masses, rows, peaks_dev, S_pad, slot, starts, counts_r,
+                cols.masses, rows, peaks_dev, S_pad, slot, starts, counts_r,
                 maxz, Zb, G_eff,
             )
             if planned is None:
@@ -1578,8 +1666,9 @@ class Scorer:
             ),
         }
 
-    def _fused_finalize(self, spectra, d, masses, intens, Pk, packed=None):
-        """Unpack the fused-select fetch into the final FeatureTable.
+    def _fused_finalize(self, d, cols, packed=None):
+        """Unpack the fused-select fetch into the final FeatureTable
+        (``cols``: the batch's ``BatchColumns``).
 
         Exactness: the device selected each spectrum's top-Ksel
         candidates by an f32 hyperscore ORDER key; this host side
@@ -1703,7 +1792,7 @@ class Scorer:
             delta_next = hs_s - np.where(has_next, nxt, 0.0)
             delta_best = hs_s[:, :1] - hs_s
 
-        cols = {
+        top = {
             "pep": srt(pep), "z": srt(zc), "iso": srt(iso),
             "mb": srt(mb), "my": srt(my), "sb": srt(sb), "sy": srt(sy),
             "pps": srt(pps), "lb": srt(lb), "ly": srt(ly),
@@ -1711,29 +1800,29 @@ class Scorer:
 
         if failed.size:
             self._select_fallback(
-                failed, d, n_ok, r_psms, cols, hs_s, delta_next,
+                failed, d, n_ok, r_psms, top, hs_s, delta_next,
                 delta_best, offs=offs, cnt=cnt,
             )
 
         ri, ci = np.nonzero(rep_mask)
-        ssum = (cols["sb"][ri, ci] + cols["sy"][ri, ci]).astype(np.float32)
-        ppm_sum = cols["pps"][ri, ci]
+        ssum = (top["sb"][ri, ci] + top["sy"][ri, ci]).astype(np.float32)
+        ppm_sum = top["pps"][ri, ci]
         ppm = np.where(
             ssum != 0,
             ppm_sum / np.where(ssum == 0, np.float32(1.0), ssum),
             0.0,
         ).astype(np.float32)
         return self._emit_table(
-            spectra,
-            s_of=ri.astype(np.int32), pep=cols["pep"][ri, ci],
-            z_of=cols["z"][ri, ci], iso_i=cols["iso"][ri, ci],
-            mb=cols["mb"][ri, ci], my=cols["my"][ri, ci],
-            sb=cols["sb"][ri, ci], sy=cols["sy"][ri, ci], ppm=ppm,
-            lb=cols["lb"][ri, ci], ly=cols["ly"][ri, ci],
+            cols,
+            s_of=ri.astype(np.int32), pep=top["pep"][ri, ci],
+            z_of=top["z"][ri, ci], iso_i=top["iso"][ri, ci],
+            mb=top["mb"][ri, ci], my=top["my"][ri, ci],
+            sb=top["sb"][ri, ci], sy=top["sy"][ri, ci], ppm=ppm,
+            lb=top["lb"][ri, ci], ly=top["ly"][ri, ci],
             hs=hs_s[ri, ci], rank0=ci.astype(np.int32),
             delta_next=delta_next[ri, ci], delta_best=delta_best[ri, ci],
             spec_matched=spec_matched, spec_scored=spec_scored,
-            tic_override=None, masses=masses, use_int=intens, Pk=Pk,
+            tic_override=None,
         )
 
     def _select_fallback(
@@ -1959,21 +2048,21 @@ class Scorer:
             "spec_scored": spec_scored,
         }
 
-    def _features_table(self, spectra, prelim, masses, intens, Pk,
-                        peaks_dev, report_psms=None, removed_masks=None,
-                        tic_override=None, batch=None) -> FeatureTable:
+    def _features_table(self, cols, prelim, peaks_dev, report_psms=None,
+                        removed_masks=None, tic_override=None,
+                        batch=None) -> FeatureTable:
         """Stage 2 and the vectorized host feature assembly
-        (scoring.rs:478-595, 675-767). A chimera round passes the removed
-        peaks, its report depth and its recomputed TICs."""
+        (scoring.rs:478-595, 675-767) of the batch ``cols`` (its
+        ``BatchColumns``). A chimera round passes the removed peaks, its
+        report depth and its recomputed TICs."""
         with trace.span("search.dispatch", batch):
-            d2 = self._stage2_dispatch(prelim, intens, peaks_dev,
-                                       masses=masses,
+            d2 = self._stage2_dispatch(prelim, cols.intens, peaks_dev,
+                                       masses=cols.masses,
                                        removed_masks=removed_masks)
         if report_psms is None:
             report_psms = self.params.report_psms
         with trace.span("search.finalize", batch):
-            return self._stage2_finalize(spectra, prelim, d2, report_psms,
-                                         masses, Pk,
+            return self._stage2_finalize(cols, prelim, d2, report_psms,
                                          tic_override=tic_override)
 
     def _stage2_dispatch(self, prelim, intens, peaks_dev, masses=None,
@@ -2024,18 +2113,18 @@ class Scorer:
             dim=-1,
         )[:, 0]
 
-    def _stage2_finalize(self, spectra, prelim, d2, report_psms, masses,
-                         Pk, tic_override=None) -> FeatureTable:
+    def _stage2_finalize(self, cols, prelim, d2, report_psms,
+                         tic_override=None) -> FeatureTable:
         """Exact f64 hyperscores of the rescored items, the per-spectrum
         ranking by (hyperscore desc, merge order), and the reported
-        rows' columns."""
+        rows' columns (``cols``: the batch's ``BatchColumns``)."""
         p = self.params
         spec_i = prelim["cand_spec"]
         pep_i = prelim["cand_pep"]
         chg = prelim["cand_charge"]
         iso = prelim["cand_iso"]
         nI = d2["nI"]
-        spec_ids = [s.id for s in spectra]
+        spec_ids = list(cols.ids)
         if nI == 0:
             t = FeatureTable.empty()
             t.spec_ids = spec_ids
@@ -2083,15 +2172,14 @@ class Scorer:
         ri = items[rep]  # original candidate indices of reported PSMs
 
         return self._emit_table(
-            spectra,
+            cols,
             s_of=spec_i[ri], pep=pep_i[ri], z_of=chg[ri], iso_i=iso[ri],
             mb=mb[ri], my=my[ri], sb=sb[ri], sy=sy[ri], ppm=ppm[ri],
             lb=lb[ri], ly=ly[ri], hs=hs[ri], rank0=rank[rep],
             delta_next=delta_next[rep], delta_best=delta_best[rep],
             spec_matched=prelim["spec_matched"],
             spec_scored=prelim["spec_scored"],
-            tic_override=tic_override, masses=masses, use_int=d2["use_int"],
-            Pk=Pk,
+            tic_override=tic_override, use_int=d2["use_int"],
         )
 
     def _row_buckets(self, rows, n_rows, W):
@@ -2173,36 +2261,28 @@ class Scorer:
         return out
 
     def _emit_table(
-        self, spectra, *, s_of, pep, z_of, iso_i, mb, my, sb, sy, ppm,
+        self, cols, *, s_of, pep, z_of, iso_i, mb, my, sb, sy, ppm,
         lb, ly, hs, rank0, delta_next, delta_best, spec_matched,
-        spec_scored, tic_override, masses, use_int, Pk,
+        spec_scored, tic_override, use_int=None,
     ) -> FeatureTable:
         """Column assembly for the REPORTED rows (scoring.rs:478-595's
         Feature construction): every per-row argument is already
         restricted to reported PSMs in final (spectrum asc, rank asc)
-        order; per-spectrum statistics arrive as full [n_spec] arrays."""
+        order; per-spectrum statistics arrive as full [n_spec] arrays.
+        The per-spectrum metadata comes from ``cols`` (the batch's
+        ``BatchColumns``); the annotations read its padded masses and the
+        intensities ``use_int``, its own where None (a chimera round's
+        have its removed peaks at -1)."""
         p = self.params
         n_rep = s_of.size
-        spec_ids = [s.id for s in spectra]
+        spec_ids = list(cols.ids)
 
         # Per-spectrum metadata columns
-        n_spec = len(spectra)
-        sp_rt = np.zeros(n_spec, np.float32)
-        sp_tic = np.zeros(n_spec, np.float32)
-        sp_mz = np.zeros(n_spec, np.float32)
-        sp_ims = np.zeros(n_spec, np.float32)
-        sp_file = np.zeros(n_spec, np.int32)
-        for si, spec in enumerate(spectra):
-            prec = spec.precursors[0]
-            sp_rt[si] = spec.scan_start_time
-            sp_tic[si] = spec.total_ion_current
-            sp_mz[si] = F32(F32(prec.mz) - PROTON)
-            sp_ims[si] = (
-                prec.inverse_ion_mobility
-                if prec.inverse_ion_mobility is not None
-                else 0.0
-            )
-            sp_file[si] = spec.file_id
+        sp_rt = cols.rt
+        sp_tic = cols.tic
+        sp_mz = (cols.prec_mz - PROTON).astype(np.float32)
+        sp_ims = cols.ims
+        sp_file = cols.file_id
         if tic_override is not None:
             sp_tic = np.asarray(tic_override, np.float32)
 
@@ -2270,6 +2350,9 @@ class Scorer:
         t.spec_ids = spec_ids
 
         if p.annotate_matches:
+            masses, Pk = cols.masses, cols.Pk
+            if use_int is None:
+                use_int = cols.intens
             t.fragments = [
                 self._annotate_item(
                     int(pep[i]), int(z_of[i]), int(s_of[i]), masses,
@@ -2323,7 +2406,8 @@ class Scorer:
     def _score_chimera(self, spectra) -> FeatureTable:
         """Stage 1 once, then rounds of the full rescore, each on the
         peaks that the earlier rounds' PSMs left (``chimera_rounds``)."""
-        masses, intens, Pk = self._pad_peaks(spectra)
+        cols = BatchColumns(spectra)
+        masses, intens = cols.masses, cols.intens
         prelim = self._preliminary(
             spectra, masses=masses,
             peaks_dev=self._peaks_device(masses, intens),
@@ -2331,8 +2415,8 @@ class Scorer:
 
         def features_table(removed, tic):
             return self._features_table(
-                spectra, prelim, masses, intens, Pk, None, report_psms=1,
-                removed_masks=removed, tic_override=tic,
+                cols, prelim, None, report_psms=1, removed_masks=removed,
+                tic_override=tic,
             )
 
         return chimera_rounds(self, spectra, masses, intens, features_table)

@@ -55,6 +55,7 @@ from ..ops.open_search import (
     _quarter_octave,
     range_tables,
 )
+from ..ops.batch_prep import BatchColumns
 from ..ops.pallas_stage1 import stage1_counts
 from ..ops.search import (
     _DeviceTables,
@@ -684,8 +685,9 @@ class ShardedScorer:
     def _dispatch(self, spectra):
         """Host prep and the step's stage 1 and merge for one batch."""
         h = self._host
-        masses, intens, Pk = h._pad_peaks(spectra)
-        rows = h._expand_rows(spectra)
+        cols = BatchColumns(spectra)
+        masses, intens = cols.masses, cols.intens
+        rows = h._expand_rows(spectra, cols)
         n_rows = rows["si"].size
         nd = self._n_data
         R = -(-max(n_rows, nd) // nd) * nd
@@ -714,8 +716,8 @@ class ShardedScorer:
         if d is None:
             d = self._full_fallback(masses, intens, si, rows, n_rows, maxz)
         self.last_route = d["kind"]
-        return {"spectra": spectra, "masses": masses, "intens": intens,
-                "Pk": Pk, "rows": rows, "n_rows": n_rows,
+        return {"spectra": spectra, "cols": cols, "masses": masses,
+                "intens": intens, "rows": rows, "n_rows": n_rows,
                 "n_spec": len(spectra), "d": d}
 
     def _full_fallback(self, masses, intens, si, rows, n_rows, maxz):
@@ -749,8 +751,7 @@ class ShardedScorer:
         d2 = {"out_dev": torch.from_numpy(packed),
               "nI": prelim["cand_spec"].size, "use_int": e["intens"]}
         return self._host._stage2_finalize(
-            e["spectra"], prelim, d2, self.params.report_psms, e["masses"],
-            e["Pk"],
+            e["cols"], prelim, d2, self.params.report_psms,
         )
 
     def _merge_prelim(self, e):
@@ -798,7 +799,7 @@ class ShardedScorer:
         h = self._host
         e = self._advance(self._dispatch(spectra))
         prelim, packed0 = self._merge_prelim(e)
-        masses, intens, Pk = e["masses"], e["intens"], e["Pk"]
+        masses, intens = e["masses"], e["intens"]
 
         def features_table(removed, tic):
             use_int = intens
@@ -808,7 +809,7 @@ class ShardedScorer:
                 packed = self._rescore_candidates(prelim, masses, use_int)
             d2 = {"out_dev": torch.from_numpy(packed),
                   "nI": prelim["cand_spec"].size, "use_int": use_int}
-            return h._stage2_finalize(spectra, prelim, d2, 1, masses, Pk,
+            return h._stage2_finalize(e["cols"], prelim, d2, 1,
                                       tic_override=tic)
 
         return chimera_rounds(h, spectra, masses, intens, features_table)

@@ -64,7 +64,7 @@ def read_fasta(path: str, decoy_tag: str, generate_decoys: bool) -> Fasta:
 
 # the port's hand kernels, by the name of their launch counters
 KERNELS = ("stage1_counts", "row_sort", "cluster_sort", "rescore",
-           "peak_ranges", "open_entries", "open_count")
+           "peak_ranges", "open_entries", "open_count", "batch_prep")
 
 # Runner.phases' keys, each the ``run.<phase>`` span's seconds
 PHASES = ("db_build", "read", "process", "search", "rt_ml", "fdr", "lda",

@@ -23,11 +23,13 @@ from sage_tpu_torch.bench_baseline import synth_fasta, synth_spectra
 from sage_tpu_torch.chem.fasta import Fasta
 from sage_tpu_torch.chem.mass import Tolerance
 from sage_tpu_torch.index.builder import DatabaseParams
+from sage_tpu_torch.ops import batch_prep as tprep
 from sage_tpu_torch.ops import narrow_banded as tbanded
 from sage_tpu_torch.ops import open_search as topen
 from sage_tpu_torch.ops import pallas_sort, pallas_stage1
 from sage_tpu_torch.ops import rescore as trescore
 from sage_tpu_torch.ops.search import Scorer, SearchParams
+from sage_tpu_torch.utils import trace
 
 import _peak_cases as pc
 from _rescore_cases import (CARD_SHAPES, RANDOM, indexed_case, kernel_cases,
@@ -913,3 +915,93 @@ def test_grid_open_launches_kernels(cuda, small, monkeypatch):
     assert all(topen.launches[k] > before[k] for k in before), before
     t_cpu = Scorer(db, params, device="cpu").score_table(spectra[:96])
     _assert_same([t_gpu], [t_cpu])
+
+
+def _prep_case(rng, S, P):
+    """A batch at the narrow cell's shapes: S spectra of 0-150 peaks (one
+    of 160, so Pk is a multiple of 32), P ascending f32 peptide masses
+    with runs of equal ones, and five isotope rows a spectrum whose
+    bounds hold masses of the table, values between them, values off
+    both ends, +-inf and NaN."""
+    lens = rng.integers(0, 151, S)
+    lens[S // 2] = 160
+    N = int(lens.sum())
+    masses = np.sort(rng.uniform(150.0, 4000.0, N)).astype(np.float32)
+    intens = rng.uniform(1.0, 1e6, N).astype(np.float32)
+    mono = np.sort(np.repeat(rng.uniform(500.0, 5000.0, P // 2), 2)
+                   .astype(np.float32))
+    R = 5 * S
+    lo = rng.uniform(400.0, 5100.0, R).astype(np.float32)
+    pick = rng.random(R) < 0.25
+    lo[pick] = mono[rng.integers(0, P, int(pick.sum()))]
+    hi = (lo + np.float32(0.05)).astype(np.float32)
+    pick = rng.random(R) < 0.25
+    hi[pick] = mono[rng.integers(0, P, int(pick.sum()))]
+    lo[:4] = (-np.inf, np.inf, np.nan, 1.0)
+    hi[:4] = (np.inf, np.inf, np.nan, 9000.0)
+    offs = np.r_[0, np.cumsum(lens)].astype(np.int32)
+    return masses, intens, offs, lo, hi, mono, lens
+
+
+def test_batch_prep_kernel_matches_plain_and_host(cuda):
+    """The batch_prep kernel at the narrow cell's shapes (8,192 spectra,
+    40,960 rows, 2 M peptide masses) against its plain version and the
+    host's padding and np.searchsorted: bit-equal block and ranges, one
+    launch."""
+    rng = np.random.default_rng(18)
+    S, P = 8192, 1 << 21
+    masses, intens, offs, lo, hi, mono, lens = _prep_case(rng, S, P)
+    Pk = tprep.padded_width(lens)
+    assert Pk == 160
+    mono_pad = np.r_[mono, np.full(2048, np.inf, np.float32)]
+    args = [torch.from_numpy(a) for a in (masses, intens, offs, lo, hi,
+                                          mono_pad)]
+    before = tprep.launches
+    peaks, i01 = tprep.batch_prep(*[a.to(cuda) for a in args], P=P, Pk=Pk)
+    torch.cuda.synchronize()
+    assert tprep.launches == before + 1
+    p_peaks, p_i01 = tprep.batch_prep_plain(*args, P=P, Pk=Pk)
+    assert torch.equal(peaks.cpu().view(torch.int32),
+                       p_peaks.view(torch.int32))
+    assert torch.equal(i01.cpu(), p_i01)
+    hm, hi_ = tprep.pad_flat(masses, intens, lens, Pk)
+    np.testing.assert_array_equal(peaks[0].cpu().numpy().view(np.uint32),
+                                  hm.view(np.uint32))
+    np.testing.assert_array_equal(peaks[1].cpu().numpy().view(np.uint32),
+                                  hi_.view(np.uint32))
+    np.testing.assert_array_equal(i01[0].cpu().numpy(),
+                                  np.searchsorted(mono, lo, side="left"))
+    np.testing.assert_array_equal(i01[1].cpu().numpy(),
+                                  np.searchsorted(mono, hi, side="right"))
+
+
+@pytest.mark.parametrize("path", ["narrow", "open"])
+def test_stream_prep_launches_and_host_pads(cuda, small, monkeypatch, path):
+    """score_stream on the card launches batch_prep once a batch; the
+    host pads no batch on the narrow fused path and pads the open path's
+    (its plan reads the padded masses); every FeatureTable column equals
+    the CPU's."""
+    db, spectra = small
+    if path == "open":
+        monkeypatch.setenv("SAGE_TPU_OPEN_THRESHOLD", "1")
+        params = SearchParams(
+            precursor_tol=Tolerance("da", -500.0, 100.0),
+            fragment_tol=Tolerance("ppm", -10.0, 10.0), report_psms=2)
+    else:
+        params = _params(("ppm", -10.0, 10.0))
+    batches = [spectra[:96], spectra[96:192], spectra[192:]]
+    c0 = trace.counters()
+    gpu = Scorer(db, params, device=cuda)
+    t_gpu = list(gpu.score_stream(batches))
+    c1 = trace.counters()
+    grew = {k: c1.get(k, 0) - c0.get(k, 0)
+            for k in ("launch.batch_prep", "search.host_pad")}
+    assert grew["launch.batch_prep"] == len(batches), grew
+    assert bool(gpu.last_plan.get("open")) == (path == "open")
+    if path == "open":
+        assert grew["search.host_pad"] > 0, grew
+    else:
+        assert grew["search.host_pad"] == 0, grew
+    t_cpu = list(Scorer(db, params, device="cpu").score_stream(batches))
+    _assert_same(t_gpu, t_cpu)
+

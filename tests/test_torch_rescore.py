@@ -415,10 +415,10 @@ def _run_caller(caller, db, spectra, monkeypatch, tmp_path):
     cnts = []
     real = scorer._fused_finalize
 
-    def finalize(spec_list, d, *a, **k):
+    def finalize(d, *a, **k):
         S_pad, Ksel = d["S_pad"], d["Ksel"]
         cnts.append(d["fused"][S_pad * Ksel:S_pad * (Ksel + 1), 5].clone())
-        return real(spec_list, d, *a, **k)
+        return real(d, *a, **k)
 
     monkeypatch.setattr(scorer, "_fused_finalize", finalize)
     assert len(scorer.score_table(spectra)) > 0

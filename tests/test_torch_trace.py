@@ -276,7 +276,7 @@ def test_launch_snapshot_has_every_kernel():
     snap = runner_mod._kernel_launches()
     assert set(snap) == {"stage1_counts", "row_sort", "cluster_sort",
                          "rescore", "peak_ranges", "open_entries",
-                         "open_count"}
+                         "open_count", "batch_prep"}
     trace.count("launch.open_count", 2)
     assert runner_mod._kernel_launches()["open_count"] == \
         snap["open_count"] + 2
